@@ -1,0 +1,74 @@
+"""Half-window spectral transforms, standard (natural bin order) layout.
+
+The PyTorch counterpart of the standard-layout subset of
+the JAX package's ``convolve/fft.py``.  Spectra are re/im PLANE tensors
+``[2, ..., F]`` float32 at every public function, so the port and the JAX
+package compare like with like; ``torch.fft`` works on complex tensors
+inside.  On a CUDA tensor the engine takes these transforms through its
+own kernels (``ops_hook.rfft_half`` and ``ops_hook.irfft_tail``); the
+functions here are their plain versions.
+
+Overlap-save at FFT size ``n`` transforms only the ``n/2`` NEW samples of a
+block (the upper half of the window is zero), and the full window spectrum
+assembles by the shift theorem as ``X_window = Xhalf_prev + (-1)^k
+Xhalf_cur``.  The inverse keeps only the last ``n/2`` output samples, all
+that overlap-save ever uses.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+__all__ = [
+    "SpectralSpec",
+    "spectral_nbins",
+    "half_window_signs",
+    "rfft_half_planes",
+    "irfft_tail_planes",
+]
+
+
+class SpectralSpec(NamedTuple):
+    """Frozen spectral configuration of one half-window engine level.
+
+    The port serves the standard layout only; a permuted-layout spectrum
+    (``r * (n/r/2 + 1)`` bins) from the JAX package does not fit it and
+    is refused where state crosses over (``utils.interop``)."""
+
+    n: int               # FFT size (2 * the level's block)
+    layout: str = "std"
+
+
+def spectral_nbins(n: int) -> int:
+    """Bins a standard-layout half-window spectrum of FFT size ``n`` holds."""
+    return n // 2 + 1
+
+
+def half_window_signs(n: int, device) -> torch.Tensor:
+    """The ``(-1)^k`` second-half shift signs over the ``n//2 + 1`` bins."""
+    s = torch.ones(n // 2 + 1, dtype=torch.float32, device=device)
+    s[1::2] = -1.0
+    return s
+
+
+def rfft_half_planes(x: torch.Tensor, n: int) -> torch.Tensor:
+    """rFFT of ``[x, zeros]`` where ``x.shape[-1] == n // 2`` ->
+    ``[2, ..., n//2 + 1]`` planes."""
+    X = torch.fft.rfft(x, n=n, dim=-1)
+    return torch.stack([X.real, X.imag])
+
+
+def irfft_tail_planes(planes: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse rFFT of ``[2, ..., n//2 + 1]`` planes, returning only the
+    last ``n // 2`` samples.
+
+    The imaginary parts of the DC and Nyquist bins are dropped, as the
+    inverse of a real transform defines them: pocketfft ignores them, but
+    cuFFT's C2R leaves its output undefined unless they are zero."""
+    im = planes[1].clone()
+    im[..., 0] = 0.0
+    im[..., n // 2] = 0.0
+    y = torch.fft.irfft(torch.complex(planes[0], im), n=n, dim=-1)
+    return y[..., n // 2:]

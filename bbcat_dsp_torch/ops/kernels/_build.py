@@ -1,0 +1,142 @@
+"""Build the package's CUDA kernels with ``nvcc`` and bind them with ctypes.
+
+Every ``csrc/*.cu`` file compiles into one shared library with a plain C
+interface (no PyTorch headers, so the build takes seconds), for
+``sm_90a`` (Hopper).  The library lands in ``bbcat_dsp_torch/_build/``
+under a name keyed by the sources' and flags' hash, is built at the first
+CUDA use in a process and reused by later processes of the same checkout.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` turns a nonzero code into an error.
+The launch counters live here too: a wrapper adds one to its kernel's
+count right after a launch succeeds, and a plain version adds one to its
+own count each time it runs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+__all__ = ["library", "check", "require", "require_cuda", "stream_of",
+           "LAUNCHES", "PLAIN_CALLS"]
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+KERNELS = ("fused_head", "rfft_half", "xt_grouped_mac", "irfft_tail",
+           "gather_supers", "delayed_add")
+LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+PLAIN_CALLS: dict[str, int] = dict.fromkeys(KERNELS, 0)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: name -> argument types (pointers, ints, then the stream)
+_SIGNATURES = {
+    "bbcat_fused_head": [_P] * 8 + [_I] * 4 + [_P],
+    "bbcat_rfft_half": [_P] * 3 + [_I] * 2 + [_P],
+    "bbcat_irfft_tail": [_P] * 3 + [_I] * 2 + [_P],
+    "bbcat_xt_grouped_mac": [_P] * 4 + [_I] * 4 + [_P],
+    "bbcat_gather_supers": [_P] * 2 + [_I] * 3 + [_P],
+    "bbcat_delayed_add": [_P] * 4 + [_I] * 3 + [_P],
+}
+
+_LIB: ctypes.CDLL | None = None
+BUILD_LOG: str = ""
+BUILD_SECONDS: float | None = None
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cand = shutil.which("nvcc") or (
+        os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None)
+    if not cand or not os.path.exists(cand):
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return cand
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC_DIR.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first use."""
+    global _LIB, BUILD_LOG, BUILD_SECONDS
+    if _LIB is not None:
+        return _LIB
+    major, minor = torch.cuda.get_device_capability()
+    if (major, minor) != (9, 0):
+        raise RuntimeError(
+            f"the kernels are built for sm_90a; this card is sm_{major}{minor}")
+    BUILD_DIR.mkdir(exist_ok=True)
+    so = BUILD_DIR / f"libbbcat_kernels_{_digest()}.so"
+    t0 = time.perf_counter()
+    if not so.exists():
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               *map(str, sorted(CSRC_DIR.glob("*.cu")))]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        BUILD_LOG = res.stdout + res.stderr
+        if res.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{BUILD_LOG}")
+        os.replace(tmp, so)
+    BUILD_SECONDS = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.bbcat_error_string.argtypes = [ctypes.c_int]
+    lib.bbcat_error_string.restype = ctypes.c_char_p
+    _LIB = lib
+    return lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        msg = library().bbcat_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code}: {msg}")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, shape: tuple) -> None:
+    """Check what every kernel operand must be: float32, contiguous, of
+    the given shape."""
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected torch.float32")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def require_cuda(**tensors: torch.Tensor) -> torch.device:
+    """Check that all operands lie on one CUDA device; return it."""
+    devs = {t.device for t in tensors.values()}
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        where = ", ".join(f"{k} on {t.device}" for k, t in tensors.items())
+        raise ValueError(f"the kernel needs its operands on one CUDA "
+                         f"device: {where}")
+    return devs.pop()

@@ -1,0 +1,87 @@
+"""Fused head of the two-level convolver (K1).
+
+``fused_head_cuda`` launches ``csrc/fused_head.cu`` (the port of
+``fused_head_pallas`` in the JAX package's ``ops/pallas/fused_head.py``), which
+carries its own FFTs.  ``fused_head_plain`` is its PyTorch version, the
+unfused ``_head_spectra -> MAC -> irfft_tail_planes`` composition of
+``adjoint.xla_fused_head``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...convolve.fft import (
+    half_window_signs,
+    irfft_tail_planes,
+    rfft_half_planes,
+)
+from . import _build
+from .spectral_fir import cplane_mac
+
+__all__ = ["fused_head_plain", "fused_head_cuda"]
+
+
+def _head_spectra(prev_xt: torch.Tensor, x: torch.Tensor, B: int,
+                  ratio: int):
+    """Window spectra of ``ratio`` consecutive blocks of ``x [C, ratio*B]``
+    by the half-window shift theorem: ``(X [2, ratio, C, F],
+    new_prev_xt [2, C, F])``."""
+    C = x.shape[0]
+    xb = x.reshape(C, ratio, B).transpose(0, 1)          # [ratio, C, B]
+    xt = rfft_half_planes(xb, 2 * B)                     # [2, ratio, C, F]
+    ext = torch.cat([prev_xt[:, None], xt], dim=1)
+    s = half_window_signs(2 * B, x.device)
+    return ext[:, :-1] + s * ext[:, 1:], xt[:, -1]
+
+
+def fused_head_plain(x: torch.Tensor, xcarry: torch.Tensor,
+                     prev: torch.Tensor, H: torch.Tensor, block: int):
+    """Head over all ``R = T // block`` small blocks of ``x [C, T]``:
+    ``(y [C, T], xcarry' [2, P, C, F], prev' [2, C, F])``."""
+    _build.PLAIN_CALLS["fused_head"] += 1
+    C, T = x.shape
+    R = T // block
+    P = H.shape[1]
+    Xnew, prev_xt = _head_spectra(prev, x, block, R)
+    xext = torch.cat([xcarry, Xnew], dim=1)              # [2, P+R, C, F]
+    acc = cplane_mac(xext, H, R)
+    y = irfft_tail_planes(acc, 2 * block)                # [R, C, B]
+    return y.transpose(0, 1).reshape(C, T), xext[:, -P:], prev_xt
+
+
+def fused_head_cuda(x: torch.Tensor, xcarry: torch.Tensor,
+                    prev: torch.Tensor, H: torch.Tensor, block: int):
+    """Launch the K1 kernel; same contract as :func:`fused_head_plain`.
+    Serves a power-of-two ``block`` from 32 to 1024 and any C, P, R."""
+    B = block
+    if not (32 <= B <= 1024 and B & (B - 1) == 0):
+        raise ValueError(f"fused_head serves power-of-two blocks 32..1024, "
+                         f"got {B}")
+    if x.dim() != 2 or H.dim() != 4:
+        raise ValueError("expected x [C, T] and H [2, P, C, F]")
+    C, T = x.shape
+    P, F = H.shape[1], B + 1
+    if T % B or T == 0:
+        raise ValueError(f"x length {T} is not a positive multiple of {B}")
+    _build.require(x, "x", (C, T))
+    _build.require(xcarry, "xcarry", (2, P, C, F))
+    _build.require(prev, "prev", (2, C, F))
+    _build.require(H, "H", (2, P, C, F))
+    dev = _build.require_cuda(x=x, xcarry=xcarry, prev=prev, H=H)
+    if x.data_ptr() % 8:
+        raise ValueError("x: the kernel reads sample pairs; base pointer "
+                         "must be 8-byte aligned")
+    y = torch.empty_like(x)
+    xcarry_out = torch.empty_like(xcarry)
+    prev_out = torch.empty_like(prev)
+    ring = torch.empty((C, P, F, 2), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.bbcat_fused_head(
+            x.data_ptr(), xcarry.data_ptr(), prev.data_ptr(), H.data_ptr(),
+            y.data_ptr(), xcarry_out.data_ptr(), prev_out.data_ptr(),
+            ring.data_ptr(), C, P, B, T // B, _build.stream_of(x))
+    _build.check(code, "fused_head")
+    _build.LAUNCHES["fused_head"] += 1
+    return y, xcarry_out, prev_out

@@ -1,0 +1,115 @@
+"""Half-window transforms of the tail: rfft_half (K3) and irfft_tail (K4).
+
+``rfft_half_cuda`` and ``irfft_tail_cuda`` launch ``csrc/half_fft.cu``,
+which carries its own FFT: the port of ``perm_rfft_half_pallas`` and
+``perm_irfft_tail_pallas`` in the JAX package's ``ops/pallas/perm_fft.py``,
+in the standard (natural) bin order instead of the TPU's permuted one.
+``rfft_half_plain`` and ``irfft_tail_plain`` are their PyTorch versions,
+:func:`~bbcat_dsp_torch.convolve.fft.rfft_half_planes` and
+:func:`~bbcat_dsp_torch.convolve.fft.irfft_tail_planes`.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ...convolve.fft import irfft_tail_planes, rfft_half_planes
+from . import _build
+
+__all__ = ["rfft_half_plain", "rfft_half_cuda", "irfft_tail_plain",
+           "irfft_tail_cuda", "HALF_MIN", "HALF_MAX"]
+
+# the half-window sizes h = n/2 the kernels serve (powers of two); the
+# upper bound is what fits a CTA's shared memory (csrc/half_fft.cu)
+HALF_MIN, HALF_MAX = 32, 8192
+
+_TWIDDLES: dict[tuple[int, torch.device], torch.Tensor] = {}
+
+
+def _twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """The kernels' ``[n, 2]`` float32 twiddle table on ``device``,
+    computed in float64 once per size and card: ``exp(-2 pi i k / n)``
+    for ``k = 0 .. n/2``, then the ``n/2 - 1`` FFT stage twiddles
+    ``exp(-2 pi i j / 2half)``, ``j < half``, for ``half = 1, 2, 4, ..``
+    (the layout of ``csrc/fft_common.cuh``)."""
+    key = (n, device)
+    if key not in _TWIDDLES:
+        halves = 1 << np.arange(int(math.log2(n // 2)))
+        stage = np.concatenate([np.arange(h) / h for h in halves])
+        ang = -np.pi * np.concatenate([2.0 * np.arange(n // 2 + 1) / n,
+                                       stage])
+        tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+        _TWIDDLES[key] = torch.from_numpy(tw).to(device)
+    return _TWIDDLES[key]
+
+
+def _half(n: int) -> int:
+    h = n // 2
+    if n != 2 * h or not (HALF_MIN <= h <= HALF_MAX and h & (h - 1) == 0):
+        raise ValueError(f"the tail transforms serve power-of-two FFT sizes "
+                         f"{2 * HALF_MIN}..{2 * HALF_MAX}, got {n}")
+    return h
+
+
+def rfft_half_plain(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``[..., n/2]`` -> ``[2, ..., n/2 + 1]``, the half-window spectrum."""
+    _build.PLAIN_CALLS["rfft_half"] += 1
+    return rfft_half_planes(x, n)
+
+
+def irfft_tail_plain(planes: torch.Tensor, n: int) -> torch.Tensor:
+    """``[2, ..., n/2 + 1]`` -> ``[..., n/2]``, the inverse's last half."""
+    _build.PLAIN_CALLS["irfft_tail"] += 1
+    return irfft_tail_planes(planes, n)
+
+
+def rfft_half_cuda(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Launch the K3 kernel; same contract as :func:`rfft_half_plain`."""
+    h = _half(n)
+    if x.dim() < 1 or x.shape[-1] != h:
+        raise ValueError(f"x: shape {tuple(x.shape)}, expected [..., {h}]")
+    lead = tuple(x.shape[:-1])
+    M = math.prod(lead)
+    _build.require(x, "x", tuple(x.shape))
+    dev = _build.require_cuda(x=x)
+    if M == 0:
+        raise ValueError("x: no rows to transform")
+    if x.data_ptr() % 8:
+        raise ValueError("x: the kernel reads sample pairs; base pointer "
+                         "must be 8-byte aligned")
+    out = torch.empty((2, *lead, h + 1), dtype=torch.float32, device=dev)
+    tw = _twiddles(n, dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.bbcat_rfft_half(x.data_ptr(), tw.data_ptr(),
+                                   out.data_ptr(), M, h, _build.stream_of(x))
+    _build.check(code, "rfft_half")
+    _build.LAUNCHES["rfft_half"] += 1
+    return out
+
+
+def irfft_tail_cuda(planes: torch.Tensor, n: int) -> torch.Tensor:
+    """Launch the K4 kernel; same contract as :func:`irfft_tail_plain`."""
+    h = _half(n)
+    if planes.dim() < 2 or planes.shape[0] != 2 or planes.shape[-1] != h + 1:
+        raise ValueError(f"planes: shape {tuple(planes.shape)}, expected "
+                         f"[2, ..., {h + 1}]")
+    lead = tuple(planes.shape[1:-1])
+    M = math.prod(lead)
+    _build.require(planes, "planes", tuple(planes.shape))
+    dev = _build.require_cuda(planes=planes)
+    if M == 0:
+        raise ValueError("planes: no rows to transform")
+    y = torch.empty((*lead, h), dtype=torch.float32, device=dev)
+    tw = _twiddles(n, dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.bbcat_irfft_tail(planes.data_ptr(), tw.data_ptr(),
+                                    y.data_ptr(), M, h,
+                                    _build.stream_of(planes))
+    _build.check(code, "irfft_tail")
+    _build.LAUNCHES["irfft_tail"] += 1
+    return y

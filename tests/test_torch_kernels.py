@@ -1,0 +1,263 @@
+"""The kernels' plain PyTorch versions against the JAX package.
+
+Each plain version is held against its ``adjoint.xla_*`` contract (the
+oracle the Pallas kernels are tested against) and against its Pallas
+kernel run with ``interpret=True`` at a tiny shape.  The tail transforms'
+(K3/K4) plain versions are the standard-layout ``rfft_half_planes`` and
+``irfft_tail_planes``, held against the reference's ``xla`` backend in
+``test_torch_fft.py``; their ``xla_*`` contracts are for the permuted
+layout, which the port does not serve.  The CUDA kernels run
+only on the card (``chip_smoke.py`` holds each against these plain
+versions there); here their wrappers are checked to refuse what they do
+not take, before any build.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bbcat_dsp_tpu.convolve import fft as jfft
+from bbcat_dsp_tpu.ops.pallas import adjoint
+from bbcat_dsp_tpu.ops.pallas.fused_head import fused_head_pallas
+from bbcat_dsp_tpu.ops.pallas.marshal import (
+    delayed_add_pallas,
+    gather_supers_pallas,
+)
+from bbcat_dsp_tpu.ops.pallas.perm_fft import (
+    perm_irfft_tail_pallas,
+    perm_rfft_half_pallas,
+)
+from bbcat_dsp_tpu.ops.pallas.spectral_fir import xt_grouped_mac_pallas
+from bbcat_dsp_torch import ops_hook
+from bbcat_dsp_torch.ops.kernels import fused_head as k1
+from bbcat_dsp_torch.ops.kernels import half_fft as k34
+from bbcat_dsp_torch.ops.kernels import marshal as k56
+from bbcat_dsp_torch.ops.kernels import spectral_fir as k2
+from conftest import snr_db
+
+
+# the contracts run jitted: one compile per shape beats eager op-by-op
+# dispatch of their many small ops
+_xla_fused_head = jax.jit(adjoint.xla_fused_head, static_argnums=4)
+_xla_xt_grouped_mac = jax.jit(adjoint.xla_xt_grouped_mac,
+                              static_argnums=(3, 4, 5))
+
+
+def _arrays(rng, *shapes):
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def _head_inputs(rng, C, P, B, R):
+    F = B + 1
+    return _arrays(rng, (C, R * B), (2, P, C, F), (2, C, F), (2, P, C, F))
+
+
+# ---- K1 fused head ------------------------------------------------------------
+
+@pytest.mark.parametrize("C,P,B,R", [
+    (8, 8, 32, 4),     # R < P: part of the carry is kept
+    (8, 8, 32, 16),    # R > P: the carry is all new windows
+    (5, 3, 64, 7),     # odd C and P
+    (1, 1, 32, 2),     # one channel, one partition
+])
+def test_fused_head_plain_matches_xla_contract(rng, C, P, B, R):
+    ins = _head_inputs(rng, C, P, B, R)
+    want = _xla_fused_head(*map(jnp.asarray, ins), B)
+    got = k1.fused_head_plain(*map(torch.from_numpy, ins), B)
+    assert got[0].shape == (C, R * B)
+    for w, g in zip(want, got):
+        assert snr_db(np.asarray(w), g.numpy()) >= 110.0
+
+
+def test_fused_head_plain_matches_pallas_interpret(rng):
+    """Tiny shape through the Pallas kernel itself.  The kernel's DFT
+    matmuls split float32 into bf16 parts (HIGH precision), which bounds
+    its agreement with an exact float32 FFT near 100 dB."""
+    C, P, B, R = 8, 4, 32, 6
+    ins = _head_inputs(rng, C, P, B, R)
+    want = fused_head_pallas(*map(jnp.asarray, ins), B, interpret=True)
+    got = k1.fused_head_plain(*map(torch.from_numpy, ins), B)
+    for w, g in zip(want, got):
+        assert snr_db(np.asarray(w), g.numpy()) >= 90.0
+
+
+# ---- K2 xt-grouped tail MAC ---------------------------------------------------
+
+@pytest.mark.parametrize("P,C,F", [(5, 5, 33), (6, 8, 65), (1, 3, 17),
+                                   (2, 1, 9)])
+def test_xt_grouped_mac_plain_matches_xla_contract(rng, P, C, F):
+    for slot0 in sorted({0, P // 2, P - 1}):
+        q, xt, H = _arrays(rng, *[(2, P, C, F)] * 3)
+        want = _xla_xt_grouped_mac(
+            jnp.asarray(q), jnp.asarray(xt), jnp.asarray(H), slot0, 1, F)
+        got = k2.xt_grouped_mac_plain(
+            torch.from_numpy(q), torch.from_numpy(xt), torch.from_numpy(H),
+            slot0)
+        assert got.shape == (2, P, C, F)
+        assert snr_db(np.asarray(want), got.numpy()) >= 110.0
+
+
+def test_xt_grouped_mac_plain_matches_pallas_interpret(rng):
+    P, C, F, slot0 = 3, 8, 33, 2
+    q, xt, H = _arrays(rng, *[(2, P, C, F)] * 3)
+    want = xt_grouped_mac_pallas(jnp.asarray(q), jnp.asarray(xt),
+                                 jnp.asarray(H), slot0, interpret=True)
+    got = k2.xt_grouped_mac_plain(torch.from_numpy(q), torch.from_numpy(xt),
+                                  torch.from_numpy(H), slot0)
+    assert snr_db(np.asarray(want), got.numpy()) >= 110.0
+
+
+def test_cplane_mac_matches_xla_head_mac(rng):
+    """The MAC both plain versions share is the K7 (head MAC) contract."""
+    P, R, C, F = 6, 3, 4, 17
+    V, H = _arrays(rng, (2, P + R, C, F), (2, P, C, F))
+    want = adjoint.xla_head_mac(jnp.asarray(V), jnp.asarray(H), R)
+    got = k2.cplane_mac(torch.from_numpy(V), torch.from_numpy(H), R)
+    assert snr_db(np.asarray(want), got.numpy()) >= 110.0
+
+
+# ---- K3/K4 tail transforms ------------------------------------------------------
+
+def test_tail_transforms_plain_match_pallas_interpret(rng):
+    """The Pallas kernels compute the same transforms in the TPU's
+    permuted bin order; mapped to the natural order they agree with the
+    plain versions.  Their stage matmuls split float32 into bf16 parts,
+    which bounds the agreement near 100 dB, as for the fused head."""
+    n, r, rows = 4096, 8, 8
+    x = rng.standard_normal((rows, n // 2)).astype(np.float32)
+    perm = np.asarray(perm_rfft_half_pallas(jnp.asarray(x), n, radix=r,
+                                            interpret=True))
+    std = jfft.unpermute_half_spectrum(perm[0] + 1j * perm[1], n, radix=r)
+    got = k34.rfft_half_plain(torch.from_numpy(x), n).numpy()
+    assert snr_db(np.stack([std.real, std.imag]), got) >= 90.0
+
+    spec = rng.standard_normal((2, rows, n // 2 + 1)).astype(np.float32)
+    spec[1][:, [0, -1]] = 0.0          # a real signal's DC and Nyquist
+    pspec = jfft.permute_half_spectrum(spec[0] + 1j * spec[1], n, radix=r)
+    want = perm_irfft_tail_pallas(
+        jnp.asarray(np.stack([pspec.real, pspec.imag]).astype(np.float32)),
+        n, interpret=True)
+    got = k34.irfft_tail_plain(torch.from_numpy(spec), n).numpy()
+    assert snr_db(np.asarray(want), got) >= 90.0
+
+
+# ---- K5 gather_supers and K6 delayed_add: bit-exact ---------------------------
+
+@pytest.mark.parametrize("C,nsup,B2", [(16, 5, 64), (5, 6, 32), (1, 1, 8),
+                                       (8, 2, 33)])
+def test_gather_supers_plain_is_exact(rng, C, nsup, B2):
+    (x,) = _arrays(rng, (C, nsup * B2))
+    got = k56.gather_supers_plain(torch.from_numpy(x), nsup).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(adjoint.xla_gather_supers(jnp.asarray(x), nsup)))
+    np.testing.assert_array_equal(
+        got, np.asarray(gather_supers_pallas(jnp.asarray(x), nsup,
+                                             interpret=True)))
+
+
+@pytest.mark.parametrize("C,Pt,B2", [(16, 5, 64), (5, 2, 32), (3, 1, 16),
+                                     (8, 6, 33)])
+def test_delayed_add_plain_is_exact(rng, C, Pt, B2):
+    yh, pend, tail = _arrays(rng, (C, Pt * B2), (2, C, B2), (Pt, C, B2))
+    got = k56.delayed_add_plain(*map(torch.from_numpy, (yh, pend, tail)))
+    jargs = tuple(map(jnp.asarray, (yh, pend, tail)))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(adjoint.xla_delayed_add(*jargs)))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(delayed_add_pallas(*jargs, interpret=True)))
+
+
+def test_delayed_add_plain_takes_strided_tail(rng):
+    """The render passes the inverse transform's tail half, a row-strided
+    view; the result equals the dense tensor's."""
+    C, Pt, B2 = 4, 3, 16
+    yh, pend, full = _arrays(rng, (C, Pt * B2), (2, C, B2), (Pt, C, 2 * B2))
+    view = torch.from_numpy(full)[..., B2:]
+    assert not view.is_contiguous()
+    a = k56.delayed_add_plain(torch.from_numpy(yh), torch.from_numpy(pend),
+                              view)
+    b = k56.delayed_add_plain(torch.from_numpy(yh), torch.from_numpy(pend),
+                              view.contiguous())
+    assert torch.equal(a, b)
+
+
+# ---- dispatch and the kernel wrappers' checks ---------------------------------
+
+def test_dispatch_takes_plain_versions_on_cpu_and_counts(rng):
+    ops_hook.reset_counts()
+    C, P, B, R = 4, 2, 32, 2
+    ins = [torch.from_numpy(a) for a in _head_inputs(rng, C, P, B, R)]
+    ops_hook.fused_head(*ins, B)
+    xt = ops_hook.rfft_half(ins[0], 2 * R * B)
+    ops_hook.irfft_tail(xt, 2 * R * B)
+    q = torch.zeros(2, 2, C, 9)
+    ops_hook.xt_grouped_mac(q, q, q, 1)
+    ops_hook.gather_supers(ins[0], 2)
+    ops_hook.delayed_add(ins[0], torch.zeros(2, C, B), torch.zeros(2, C, B))
+    counts = ops_hook.counts()
+    assert counts["plain"] == dict.fromkeys(counts["plain"], 1)
+    assert counts["launches"] == dict.fromkeys(counts["launches"], 0)
+    ops_hook.reset_counts()
+    assert not any(ops_hook.counts()["plain"].values())
+
+
+def test_dispatch_refuses_other_devices():
+    x = torch.empty(4, 64, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        ops_hook.gather_supers(x, 2)
+
+
+def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(rng):
+    C, P, B, R = 4, 2, 32, 2
+    ins = [torch.from_numpy(a) for a in _head_inputs(rng, C, P, B, R)]
+    with pytest.raises(ValueError, match="CUDA"):
+        k1.fused_head_cuda(*ins, B)                    # CPU tensors
+    with pytest.raises(ValueError, match="power-of-two"):
+        k1.fused_head_cuda(*ins, 48)
+    with pytest.raises(ValueError, match="power-of-two"):
+        k1.fused_head_cuda(*ins, 2048)
+    with pytest.raises(ValueError, match="shape"):
+        k1.fused_head_cuda(ins[0], ins[1][:, :1], ins[2], ins[3], B)
+    with pytest.raises(ValueError, match="dtype"):
+        k1.fused_head_cuda(ins[0].double(), *ins[1:], B)
+    with pytest.raises(ValueError, match="contiguous"):
+        k1.fused_head_cuda(ins[0].t().contiguous().t(), *ins[1:], B)
+    q = torch.zeros(2, 3, C, 9)
+    with pytest.raises(ValueError, match="CUDA"):
+        k2.xt_grouped_mac_cuda(q, q, q, 0)
+    with pytest.raises(ValueError, match="P <="):
+        big = torch.zeros(2, k2.XT_MAX_PARTS + 1, 1, 3)
+        k2.xt_grouped_mac_cuda(big, big, big, 0)
+    with pytest.raises(ValueError, match="split"):
+        k56.gather_supers_cuda(torch.zeros(C, 10), 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        k56.gather_supers_cuda(torch.zeros(C, 12), 3)
+    tail = torch.zeros(2, C, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        k56.delayed_add_cuda(torch.zeros(C, 32), torch.zeros(2, C, 16),
+                             tail.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        k56.delayed_add_cuda(torch.zeros(C, 32), torch.zeros(2, C, 16), tail)
+
+
+def test_tail_transform_wrappers_refuse_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError, match="CUDA"):
+        k34.rfft_half_cuda(torch.zeros(3, 64), 128)     # CPU tensors
+    with pytest.raises(ValueError, match="power-of-two"):
+        k34.rfft_half_cuda(torch.zeros(3, 48), 96)
+    with pytest.raises(ValueError, match="power-of-two"):
+        k34.rfft_half_cuda(torch.zeros(3, 16), 32)
+    with pytest.raises(ValueError, match="shape"):
+        k34.rfft_half_cuda(torch.zeros(3, 32), 128)
+    with pytest.raises(ValueError, match="dtype"):
+        k34.rfft_half_cuda(torch.zeros(3, 64, dtype=torch.float64), 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        k34.rfft_half_cuda(torch.zeros(64, 3).t(), 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        k34.irfft_tail_cuda(torch.zeros(2, 3, 65), 128)
+    with pytest.raises(ValueError, match="power-of-two"):
+        k34.irfft_tail_cuda(torch.zeros(2, 3, 32769), 65536)
+    with pytest.raises(ValueError, match="shape"):
+        k34.irfft_tail_cuda(torch.zeros(3, 65), 128)
