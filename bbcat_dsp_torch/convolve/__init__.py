@@ -1,6 +1,15 @@
-"""Partitioned convolution: the two-level engine's render path."""
+"""Partitioned convolution: the two-level engine and the uniform
+BlockConvolver, each streaming with click-free IR exchange."""
 
-from .block import ConvolverState, convolver_init, partition_ir
+from .block import (
+    BlockConvolver,
+    ConvolverState,
+    convolver_init,
+    convolver_render,
+    convolver_step,
+    convolver_step_crossfade,
+    partition_ir,
+)
 from .fft import (
     SpectralSpec,
     half_window_signs,
@@ -16,8 +25,12 @@ from .nonuniform import (
 )
 
 __all__ = [
+    "BlockConvolver",
     "ConvolverState",
     "convolver_init",
+    "convolver_render",
+    "convolver_step",
+    "convolver_step_crossfade",
     "partition_ir",
     "SpectralSpec",
     "half_window_signs",

@@ -1,11 +1,15 @@
-"""Uniformly partitioned overlap-save pieces the two-level engine uses.
+"""Uniformly partitioned overlap-save convolution with click-free IR
+exchange: the streaming :class:`BlockConvolver`, and the pieces the
+two-level engine shares with it.
 
-The counterpart of ``ConvolverState``, ``partition_ir``,
-``convolver_init`` and ``_roll_slots`` in the JAX package's
-``convolve/block.py``.
+The counterpart of the JAX package's ``convolve/block.py``.
 The spectral queue is a re/im plane tensor ``[2, P, C, F]``; the step
 counter is a host integer, because PyTorch runs eagerly and the slot of
-every queue access is then known on the host.
+every queue access is then known on the host.  So :func:`convolver_step`
+is the reference's static-slot step (``_step_static_slot``), whose MAC is
+the rotated MAC (K9, ``ops_hook.rotated_mac``), and :func:`convolver_render`
+always takes the reference's static roll for the queue's write-back.  The
+render's MAC has the head MAC's contract (K7, ``ops_hook.head_mac``).
 """
 
 from __future__ import annotations
@@ -15,9 +19,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .fft import spectral_nbins
+from .. import ops_hook
+from .fft import half_window_signs, spectral_nbins
 
-__all__ = ["ConvolverState", "partition_ir", "convolver_init"]
+__all__ = [
+    "ConvolverState",
+    "partition_ir",
+    "convolver_init",
+    "convolver_step",
+    "convolver_step_crossfade",
+    "convolver_render",
+    "BlockConvolver",
+]
 
 
 class ConvolverState(NamedTuple):
@@ -60,3 +73,149 @@ def _roll_slots(a: torch.Tensor, shift: int, dim: int = 1) -> torch.Tensor:
     """Circular roll: ``out[s] = a[(s + shift) % n]`` along ``dim``."""
     shift %= a.shape[dim]
     return a if shift == 0 else torch.roll(a, -shift, dims=dim)
+
+
+def _ramp(n: int, device) -> torch.Tensor:
+    """The crossfade's ``(k + 1) / n`` over ``n`` samples."""
+    return (torch.arange(n, dtype=torch.float32, device=device) + 1) / n
+
+
+def _push(state: ConvolverState, x: torch.Tensor):
+    """Half-window transform of ``x [C, B]``, window assembly by the shift
+    theorem, and the queue write at the host slot ``step % P``:
+    ``(queue', slot, xt)``, ``xt`` the next state's ``prev``.  The write
+    goes to a copy: the old queue may still be someone's state."""
+    P = state.queue.shape[1]
+    B = x.shape[-1]
+    xt = ops_hook.rfft_half(x, 2 * B)                     # [2, C, F]
+    X = state.prev + half_window_signs(2 * B, x.device) * xt
+    slot = state.step % P
+    queue = state.queue.clone()
+    queue[:, slot] = X
+    return queue, slot, xt
+
+
+def convolver_step(state: ConvolverState, H: torch.Tensor, x: torch.Tensor):
+    """One block ``x [C, B]`` -> ``(state', y [C, B])``."""
+    B = x.shape[-1]
+    queue, slot, xt = _push(state, x)
+    y = ops_hook.irfft_tail(ops_hook.rotated_mac(queue, H, slot), 2 * B)
+    return ConvolverState(queue, xt, state.step + 1), y
+
+
+def convolver_step_crossfade(state: ConvolverState, H_old: torch.Tensor,
+                             H_new: torch.Tensor, x: torch.Tensor):
+    """Filter-exchange block: both filters run on the same queue and the
+    outputs fade linearly, ``r[k] = (k + 1) / B`` (the golden crossfade
+    contract)."""
+    B = x.shape[-1]
+    queue, slot, xt = _push(state, x)
+    y_old = ops_hook.irfft_tail(ops_hook.rotated_mac(queue, H_old, slot), 2 * B)
+    y_new = ops_hook.irfft_tail(ops_hook.rotated_mac(queue, H_new, slot), 2 * B)
+    r = _ramp(B, x.device)
+    return ConvolverState(queue, xt, state.step + 1), (1 - r) * y_old + r * y_new
+
+
+def convolver_render(state: ConvolverState, H: torch.Tensor, x: torch.Tensor,
+                     block: int):
+    """Render ``x [C, T]``, T a multiple of ``block``, as one batched window
+    FIR: all ``n = T / block`` blocks in one transform, one MAC (K7) over
+    the ``[past P windows | n new]`` history and one inverse.  The final
+    state equals a chain of :func:`convolver_step` calls."""
+    C, T = x.shape
+    B = block
+    if T % B or T == 0:
+        raise ValueError(f"T={T} is not a positive multiple of the block {B}")
+    n = T // B
+    P = state.queue.shape[1]
+    slot0 = state.step % P
+    xb = x.reshape(C, n, B).transpose(0, 1).contiguous()  # [n, C, B]
+    xt = ops_hook.rfft_half(xb, 2 * B)                    # [2, n, C, F]
+    ext = torch.cat([state.prev[:, None], xt], dim=1)
+    X = ext[:, :-1] + half_window_signs(2 * B, x.device) * ext[:, 1:]
+    # past P windows, oldest first: the window of step - P + k is in slot
+    # (slot0 + k) % P
+    Xext = torch.cat([_roll_slots(state.queue, slot0), X], dim=1)
+    acc = ops_hook.head_mac(Xext, H, n)                   # [2, n, C, F]
+    y = ops_hook.irfft_tail(acc, 2 * B).transpose(0, 1).reshape(C, T)
+    # the last P windows back in slot encoding: window j of them is step
+    # step + n - P + j, slot (slot0 + n + j) % P
+    queue = _roll_slots(Xext[:, n:n + P], -(slot0 + n)).contiguous()
+    return ConvolverState(queue, xt[:, -1].contiguous(), state.step + n), y
+
+
+class BlockConvolver:
+    """Streaming multi-channel uniformly partitioned convolver with
+    host-driven click-free IR exchange.
+
+    ``ir [C, N]`` (or ``[N]``, broadcast to ``nchannels``) as a numpy
+    array; every tensor lives on ``device``.  :meth:`process_block` takes
+    one block ``[C, block]`` (or ``[block]`` for mono), :meth:`process` a
+    whole ``[C, T]`` signal; both continue the same stream."""
+
+    def __init__(self, ir, block: int, nchannels: int | None = None,
+                 nparts: int | None = None, *, device):
+        ir2 = np.atleast_2d(np.asarray(ir))
+        if nchannels is None:
+            nchannels = ir2.shape[0]
+        if ir2.shape[0] == 1 and nchannels > 1:
+            ir2 = np.broadcast_to(ir2, (nchannels, ir2.shape[1]))
+        self.device = torch.device(device)
+        self.block = int(block)
+        self.H = partition_ir(ir2, self.block, nparts, device=self.device)
+        self.nparts = self.H.shape[1]
+        self.nchannels = nchannels
+        self._pending_H = None
+        self.reset()
+
+    def set_filter(self, ir, channel: int | None = None) -> None:
+        """Schedule a click-free IR exchange at the next block.
+
+        ``channel=None`` replaces all channels' IRs (``ir`` shaped like the
+        constructor's); otherwise one channel's.  Per-channel exchanges
+        before one block stack."""
+        if channel is None:
+            ir2 = np.atleast_2d(np.asarray(ir))
+            if ir2.shape[0] == 1 and self.nchannels > 1:
+                ir2 = np.broadcast_to(ir2, (self.nchannels, ir2.shape[1]))
+            newH = partition_ir(ir2, self.block, self.nparts,
+                                device=self.device)
+        else:
+            one = partition_ir(np.asarray(ir), self.block, self.nparts,
+                               device=self.device)
+            # a copy: the base may be the filter the stream still runs
+            newH = (self._pending_H if self._pending_H is not None
+                    else self.H).clone()
+            newH[:, :, channel] = one[:, :, 0]
+        self._pending_H = newH
+
+    def _input(self, x):
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        return (x[None] if x.dim() == 1 else x).contiguous(), x.dim() == 1
+
+    def process_block(self, x) -> torch.Tensor:
+        """``x [C, block]`` (or ``[block]``) -> the convolved block."""
+        x, mono = self._input(x)
+        if x.shape[-1] != self.block:
+            raise ValueError(f"block of {x.shape[-1]} samples, expected "
+                             f"{self.block}")
+        if self._pending_H is not None:
+            self.state, y = convolver_step_crossfade(
+                self.state, self.H, self._pending_H, x)
+            self.H, self._pending_H = self._pending_H, None
+        else:
+            self.state, y = convolver_step(self.state, self.H, x)
+        return y[0] if mono else y
+
+    def process(self, x) -> torch.Tensor:
+        """Whole-signal render ``[C, T]`` (or ``[T]``), T a multiple of
+        ``block``."""
+        x, mono = self._input(x)
+        self.state, y = convolver_render(self.state, self.H, x, self.block)
+        return y[0] if mono else y
+
+    def reset(self) -> None:
+        """Restart the stream from silence.  A scheduled exchange stays
+        scheduled, as in the reference."""
+        self.state = convolver_init(self.nchannels, self.block, self.nparts,
+                                    device=self.device)

@@ -1,8 +1,8 @@
-"""Two-level non-uniform partitioned convolution: the throughput render.
+"""Two-level non-uniform partitioned convolution: render and streaming.
 
-The PyTorch counterpart of the render path of the JAX package's
-``convolve/nonuniform.py``.  Level 1 (the head) runs the first ``2 * ratio * block`` taps at
-block ``B``; level 2 (the tail) runs the rest at ``B2 = ratio * B``.  The
+The PyTorch counterpart of the JAX package's ``convolve/nonuniform.py``.
+Level 1 (the head) runs the first ``2 * ratio * block`` taps at block
+``B``; level 2 (the tail) runs the rest at ``B2 = ratio * B``.  The
 tail's output is delayed by ``2 * B2`` samples and re-aligned by a 2-slot
 ``pending`` queue.
 
@@ -12,10 +12,15 @@ consecutive pairs at MAC time.  ``tail.step`` is a host integer, so every
 render group knows its queue slot on the host and takes the static-slot
 path (K2); the JAX package's traced-slot branch has no counterpart here.
 
-On CUDA tensors the render runs through the six kernels behind
+On CUDA tensors the render runs through six kernels behind
 :mod:`bbcat_dsp_torch.ops_hook` (K1 fused head, K5 gather, K3 tail
 forward transform, K2 tail MAC, K4 tail inverse transform, K6 delayed
-add).  On CPU tensors the same calls run the kernels' plain versions.
+add).  The streaming paths (:meth:`NonUniformConvolver.process_block`,
+:meth:`~NonUniformConvolver.process_small_block`) and the click-free IR
+exchange (:meth:`~NonUniformConvolver.set_filter`) add the head MAC (K7):
+the head of a crossfade or of one small block is K3, K7, K4, and every
+per-super-step tail is K3, K7, K4.  On CPU tensors the same calls run the
+kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -26,8 +31,13 @@ import numpy as np
 import torch
 
 from .. import ops_hook
-from ..ops.kernels.spectral_fir import cplane_mac
-from .block import ConvolverState, _roll_slots, convolver_init, partition_ir
+from .block import (
+    ConvolverState,
+    _ramp,
+    _roll_slots,
+    convolver_init,
+    partition_ir,
+)
 from .fft import half_window_signs, spectral_nbins
 
 __all__ = [
@@ -56,14 +66,36 @@ def _head_step(xcarry, prev, H_head, x, block: int):
     return ops_hook.fused_head(x, xcarry, prev, H_head, block)
 
 
+def _head_spectra(prev_xt: torch.Tensor, x: torch.Tensor, B: int,
+                  ratio: int):
+    """Window spectra of the ``ratio`` blocks of ``x [C, ratio*B]`` by the
+    half-window shift theorem, one K3 launch for all of them: ``(X [2,
+    ratio, C, F], new_prev_xt [2, C, F])``."""
+    C = x.shape[0]
+    xb = x.reshape(C, ratio, B).transpose(0, 1).contiguous()  # [ratio, C, B]
+    xt = ops_hook.rfft_half(xb, 2 * B)                        # [2, ratio, C, F]
+    ext = torch.cat([prev_xt[:, None], xt], dim=1)
+    s = half_window_signs(2 * B, x.device)
+    return ext[:, :-1] + s * ext[:, 1:], xt[:, -1].contiguous()
+
+
+def _head_history(xcarry, prev, x, B: int, ratio: int):
+    """``(xext [2, P+ratio, C, F], prev')``: the carried window spectra
+    followed by those of the ``ratio`` new blocks."""
+    Xnew, prev_xt = _head_spectra(prev, x, B, ratio)
+    return torch.cat([xcarry, Xnew], dim=1), prev_xt
+
+
 def _tail_windows_from_xt(tseq: torch.Tensor, s: torch.Tensor):
     """``w[i] = tseq[i] + s * tseq[i+1]``: windows from consecutive half
     spectra ``[2, K+1, C, F]`` -> ``[2, K, C, F]``."""
     return tseq[:, :-1] + s * tseq[:, 1:]
 
 
-def _tail_step_xt(state: ConvolverState, H, x):
-    """One tail super-step over ``x [C, B2]``: ``(state', y [C, B2])``."""
+def _tail_step_xt(state: ConvolverState, H, x, H_old=None):
+    """One tail super-step over ``x [C, B2]``: ``(state', y [C, B2])``.
+    With ``H_old`` the step fades from the old filter to ``H`` over the
+    super-block, ``r[k] = (k + 1) / B2``."""
     B2 = x.shape[-1]
     Pt = state.queue.shape[1]
     xt = ops_hook.rfft_half(x, 2 * B2)                     # [2, C, F]
@@ -71,9 +103,17 @@ def _tail_step_xt(state: ConvolverState, H, x):
     slot = state.step % Pt
     tseq = torch.cat([_roll_slots(state.queue, slot), xt[:, None]], dim=1)
     w = _tail_windows_from_xt(tseq, s)                     # W(step-Pt+1..step)
-    # out = sum_p W(step - p) * H[p]
-    acc = cplane_mac(torch.cat([torch.zeros_like(w[:, :1]), w], 1), H, 1)
-    y = ops_hook.irfft_tail(acc[:, 0], 2 * B2)
+    # out = sum_p W(step - p) * H[p]: the head MAC's contract over the
+    # windows behind one never-read slot
+    ext = torch.cat([torch.zeros_like(w[:, :1]), w], 1)
+
+    def run(Hs):
+        return ops_hook.irfft_tail(ops_hook.head_mac(ext, Hs, 1)[:, 0], 2 * B2)
+
+    y = run(H)
+    if H_old is not None:
+        r = _ramp(B2, x.device)
+        y = (1 - r) * run(H_old) + r * y
     queue = state.queue.clone()
     queue[:, slot] = xt
     return ConvolverState(queue, xt, state.step + 1), y
@@ -87,6 +127,51 @@ def _super_step(state: NonUniformState, H_head, H_tail, x, block: int):
     tail, out_tail = _tail_step_xt(state.tail, H_tail, x)
     pending = torch.stack([state.pending[1], out_tail])
     return NonUniformState(xcarry, prev, tail, pending), y
+
+
+def _super_step_crossfade(state: NonUniformState, H_head, H_head_new, H_tail,
+                          H_tail_new, x, block: int):
+    """The super-block in which an IR exchange begins: the head fades over
+    its first small block, the tail over the whole super-block."""
+    B = block
+    C, SB = x.shape
+    ratio = SB // B
+    P = H_head.shape[1]
+    xext, prev = _head_history(state.xcarry, state.prev, x, B, ratio)
+    y_new = ops_hook.irfft_tail(ops_hook.head_mac(xext, H_head_new, ratio),
+                                2 * B)                     # [ratio, C, B]
+    # the old filter for block 0 only: the MAC reads the first P + 1 slots
+    # of the whole history (no sliced copy)
+    y_old0 = ops_hook.irfft_tail(ops_hook.head_mac(xext, H_head, 1), 2 * B)[0]
+    r = _ramp(B, x.device)
+    y0 = (1 - r) * y_old0 + r * y_new[0]
+    y2 = torch.cat([y0[None], y_new[1:]])
+    y = y2.transpose(0, 1).reshape(C, SB) + state.pending[0]
+    tail, out_tail = _tail_step_xt(state.tail, H_tail_new, x, H_old=H_tail)
+    pending = torch.stack([state.pending[1], out_tail])
+    return NonUniformState(xext[:, -P:].contiguous(), prev, tail, pending), y
+
+
+def _head_step_single(xcarry, prev, H_head, x):
+    """One small block of the head, ``x [C, B]`` -> ``(y_head [C, B],
+    xcarry', prev')``: K3, then K7, then K4."""
+    B = x.shape[-1]
+    xext, prev = _head_history(xcarry, prev, x, B, 1)
+    y = ops_hook.irfft_tail(ops_hook.head_mac(xext, H_head, 1), 2 * B)[0]
+    return y, xext[:, -H_head.shape[1]:].contiguous(), prev
+
+
+def _head_step_single_crossfade(xcarry, prev, H_old, H_new, x):
+    """:func:`_head_step_single` fading from ``H_old`` to ``H_new``."""
+    B = x.shape[-1]
+    xext, prev = _head_history(xcarry, prev, x, B, 1)
+
+    def run(H):
+        return ops_hook.irfft_tail(ops_hook.head_mac(xext, H, 1), 2 * B)[0]
+
+    r = _ramp(B, x.device)
+    y = (1 - r) * run(H_old) + r * run(H_new)
+    return y, xext[:, -H_old.shape[1]:].contiguous(), prev
 
 
 def _render_group(state: NonUniformState, xg, H_head, H_tail, block: int):
@@ -164,12 +249,23 @@ def nonuniform_render_looped(state: NonUniformState, H_head, H_tail, xs,
 
 
 class NonUniformConvolver:
-    """Streaming two-level partitioned convolver (render path).
+    """Streaming two-level partitioned convolver with click-free IR
+    exchange.
 
     ``ir [C, N]`` (or ``[N]``, broadcast to ``nchannels``) as a numpy
-    array; every tensor lives on ``device``.  :meth:`process` renders
-    ``[C, T]`` signals, T a multiple of ``ratio * block``, continuing the
-    stream from call to call."""
+    array; every tensor lives on ``device``.  Three ways in, which continue
+    the same stream:
+
+    - :meth:`process` renders ``[C, T]``, T a multiple of ``ratio *
+      block``, batched over whole render groups;
+    - :meth:`process_block` takes one super-block ``[C, ratio * block]``;
+    - :meth:`process_small_block` takes one small block ``[C, block]``,
+      the low-latency path: the head runs every block, the tail once a
+      super-block has gathered.
+
+    :meth:`set_filter` schedules an exchange that the next
+    ``process_block`` or ``process_small_block`` fades in; ``process``
+    leaves it scheduled, as the reference does."""
 
     def __init__(self, ir, block: int, ratio: int = 8,
                  nchannels: int | None = None, *, device):
@@ -183,16 +279,51 @@ class NonUniformConvolver:
         self.ratio = int(ratio)
         self.super_block = self.block * self.ratio
         self.nchannels = nchannels
-        head, tail = _split_ir(ir2, self.block, self.ratio)
         self.head_parts = 2 * self.ratio
-        self.H_head = partition_ir(head, self.block, self.head_parts,
-                                   device=self.device)
-        if tail is None:
-            tail = np.zeros((nchannels, 1))
-        self.tail_parts = max(1, -(-tail.shape[1] // self.super_block))
-        self.H_tail = partition_ir(tail, self.super_block, self.tail_parts,
-                                   device=self.device)
+        tail = _split_ir(ir2, self.block, self.ratio)[1]
+        self.tail_parts = (1 if tail is None else
+                           max(1, -(-tail.shape[1] // self.super_block)))
+        self.H_head, self.H_tail = self._spectra(ir2)
+        self._pending_swap = None
+        self._tail_swap = None
         self.reset()
+
+    def _spectra(self, ir2):
+        """``(H_head, H_tail)`` of IRs ``[C', N]`` at this engine's sizes."""
+        head, tail = _split_ir(ir2, self.block, self.ratio)
+        if tail is None:
+            tail = np.zeros((ir2.shape[0], 1))
+        return (partition_ir(head, self.block, self.head_parts,
+                             device=self.device),
+                partition_ir(tail, self.super_block, self.tail_parts,
+                             device=self.device))
+
+    def set_filter(self, ir, channel: int | None = None) -> None:
+        """Click-free IR exchange, starting at the next (small or super)
+        block.  ``channel=None`` replaces all channels (``ir`` shaped like
+        the constructor's); otherwise one channel's IR ``[N]``.
+        Per-channel exchanges before one block stack."""
+        if channel is None:
+            ir2 = np.atleast_2d(np.asarray(ir))
+            if ir2.shape[0] == 1 and self.nchannels > 1:
+                ir2 = np.broadcast_to(ir2, (self.nchannels, ir2.shape[1]))
+            self._pending_swap = self._spectra(ir2)
+            return
+        one = self._spectra(np.atleast_2d(np.asarray(ir)))
+        base = (self._pending_swap if self._pending_swap is not None
+                else (self.H_head, self.H_tail))
+        new = []
+        for b, o in zip(base, one):
+            b = b.clone()  # the base may be the filter the stream still runs
+            b[:, :, channel] = o[:, :, 0]
+            new.append(b)
+        self._pending_swap = tuple(new)
+
+    def _input(self, x, n: int, what: str) -> torch.Tensor:
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        if x.shape[-1] != n:
+            raise ValueError(f"{what} of {x.shape[-1]} samples, expected {n}")
+        return x.contiguous()
 
     def process(self, x) -> torch.Tensor:
         """Whole-signal render of ``x [C, T]``."""
@@ -202,9 +333,70 @@ class NonUniformConvolver:
                                           self.block)
         return y
 
+    def process_block(self, x) -> torch.Tensor:
+        """One super-block ``x [C, ratio * block]`` -> its output."""
+        x = self._input(x, self.super_block, "super-block")
+        if self._sb_fill:
+            raise ValueError("process_block cannot start mid-way through "
+                             "a super-block of small blocks")
+        if self._pending_swap is not None:
+            Hh, Ht = self._pending_swap
+            self.state, y = _super_step_crossfade(
+                self.state, self.H_head, Hh, self.H_tail, Ht, x, self.block)
+            self.H_head, self.H_tail = Hh, Ht
+            self._pending_swap = None
+        else:
+            self.state, y = _super_step(self.state, self.H_head, self.H_tail,
+                                        x, self.block)
+        return y
+
+    def process_small_block(self, x) -> torch.Tensor:
+        """Low-latency streaming: one small block ``x [C, block]`` in and
+        out.  An exchange fades the head in over this block and the tail
+        over its next firing."""
+        B = self.block
+        x = self._input(x, B, "small block")
+        st = self.state
+        if self._pending_swap is not None:
+            Hh, self._tail_swap = self._pending_swap
+            y_head, xcarry, prev = _head_step_single_crossfade(
+                st.xcarry, st.prev, self.H_head, Hh, x)
+            self.H_head = Hh
+            self._pending_swap = None
+        else:
+            y_head, xcarry, prev = _head_step_single(st.xcarry, st.prev,
+                                                     self.H_head, x)
+        off = self._sb_fill * B
+        y = y_head + st.pending[0][:, off:off + B]
+        self._sb_buf[:, off:off + B] = x     # in place: the buffer is ours
+        self._sb_fill += 1
+        tail, pending = st.tail, st.pending
+        if self._sb_fill == self.ratio:
+            if self._tail_swap is not None:
+                tail, out_tail = _tail_step_xt(st.tail, self._tail_swap,
+                                               self._sb_buf, H_old=self.H_tail)
+                self.H_tail, self._tail_swap = self._tail_swap, None
+            else:
+                tail, out_tail = _tail_step_xt(st.tail, self.H_tail,
+                                               self._sb_buf)
+            pending = torch.stack([st.pending[1], out_tail])
+            self._sb_fill = 0
+        self.state = NonUniformState(xcarry, prev, tail, pending)
+        return y
+
     def reset(self) -> None:
+        """Restart the stream from silence.  An exchange still scheduled,
+        or whose tail half has not fired yet, takes effect at once: there
+        is no past output left to fade from."""
+        if self._pending_swap is not None:
+            self.H_head, self._tail_swap = self._pending_swap
+        if self._tail_swap is not None:
+            self.H_tail = self._tail_swap
+        self._pending_swap = self._tail_swap = None
         C, dev = self.nchannels, self.device
         F = spectral_nbins(2 * self.block)
+        self._sb_buf = torch.zeros((C, self.super_block), device=dev)
+        self._sb_fill = 0
         self.state = NonUniformState(
             xcarry=torch.zeros((2, self.head_parts, C, F), device=dev),
             prev=torch.zeros((2, C, F), device=dev),

@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels with ``nvcc`` and bind them with ctypes.
 
-Every ``csrc/*.cu`` file compiles into one shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds), for
+Every ``csrc/*.cu`` file compiles, one ``nvcc`` per file and all of them
+at once, into an object that one link joins into a shared library with a
+plain C interface (no PyTorch headers, so the build takes seconds), for
 ``sm_90a`` (Hopper).  The library lands in ``bbcat_dsp_torch/_build/``
 under a name keyed by the sources' and flags' hash, is built at the first
 CUDA use in a process and reused by later processes of the same checkout.
@@ -33,10 +34,10 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 KERNELS = ("fused_head", "rfft_half", "xt_grouped_mac", "irfft_tail",
-           "gather_supers", "delayed_add")
+           "gather_supers", "delayed_add", "head_mac", "rotated_mac")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -50,6 +51,8 @@ _SIGNATURES = {
     "bbcat_xt_grouped_mac": [_P] * 4 + [_I] * 4 + [_P],
     "bbcat_gather_supers": [_P] * 2 + [_I] * 3 + [_P],
     "bbcat_delayed_add": [_P] * 4 + [_I] * 3 + [_P],
+    "bbcat_head_mac": [_P] * 3 + [_I] * 5 + [_P],
+    "bbcat_rotated_mac": [_P] * 3 + [_I] * 4 + [_P],
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -75,6 +78,38 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile(tmp: Path, so: Path) -> str:
+    """One ``nvcc -c`` per source, all started together, then one link
+    into ``so``; returns the compilers' output."""
+    nvcc = _nvcc()
+    procs = []
+    try:
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            obj = tmp / f"{src.stem}.o"
+            procs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs = [proc.communicate()[0] for _, _, proc in procs]
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log = "".join(logs)
+    failed = [src.name for src, _, proc in procs if proc.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    lib = tmp / so.name
+    res = subprocess.run(
+        [nvcc, "-shared", "-o", str(lib), *(str(o) for _, o, _ in procs)],
+        capture_output=True, text=True)
+    log += res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{log}")
+    os.replace(lib, so)
+    return log
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use."""
     global _LIB, BUILD_LOG, BUILD_SECONDS
@@ -88,16 +123,8 @@ def library() -> ctypes.CDLL:
     so = BUILD_DIR / f"libbbcat_kernels_{_digest()}.so"
     t0 = time.perf_counter()
     if not so.exists():
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *map(str, sorted(CSRC_DIR.glob("*.cu")))]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_LOG = res.stdout + res.stderr
-        if res.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{BUILD_LOG}")
-        os.replace(tmp, so)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            BUILD_LOG = _compile(Path(tmp), so)
     BUILD_SECONDS = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

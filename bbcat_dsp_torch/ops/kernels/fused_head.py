@@ -32,7 +32,7 @@ def _head_spectra(prev_xt: torch.Tensor, x: torch.Tensor, B: int,
     xt = rfft_half_planes(xb, 2 * B)                     # [2, ratio, C, F]
     ext = torch.cat([prev_xt[:, None], xt], dim=1)
     s = half_window_signs(2 * B, x.device)
-    return ext[:, :-1] + s * ext[:, 1:], xt[:, -1]
+    return ext[:, :-1] + s * ext[:, 1:], xt[:, -1].contiguous()
 
 
 def fused_head_plain(x: torch.Tensor, xcarry: torch.Tensor,
@@ -47,7 +47,8 @@ def fused_head_plain(x: torch.Tensor, xcarry: torch.Tensor,
     xext = torch.cat([xcarry, Xnew], dim=1)              # [2, P+R, C, F]
     acc = cplane_mac(xext, H, R)
     y = irfft_tail_planes(acc, 2 * block)                # [R, C, B]
-    return y.transpose(0, 1).reshape(C, T), xext[:, -P:], prev_xt
+    return (y.transpose(0, 1).reshape(C, T), xext[:, -P:].contiguous(),
+            prev_xt)
 
 
 def fused_head_cuda(x: torch.Tensor, xcarry: torch.Tensor,

@@ -1,0 +1,96 @@
+"""Spectral MACs of the streaming engines: head_mac (K7/K8) and
+rotated_mac (K9).
+
+``head_mac_cuda`` and ``rotated_mac_cuda`` launch ``csrc/spectral_mac.cu``,
+the port of ``head_mac_tiled_pallas`` and ``head_mac_pallas`` (one kernel at
+any C) and of ``rotated_mac_pallas`` in the JAX package's ``ops/pallas/``.
+``head_mac_plain`` is their PyTorch version, a counted call of
+:func:`~bbcat_dsp_torch.ops.kernels.spectral_fir.cplane_mac` (which stays the
+uncounted MAC inside the plain K1 and K2); ``rotated_mac_plain`` follows
+``adjoint.xla_rotated_mac``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .spectral_fir import cplane_mac
+
+__all__ = ["head_mac_plain", "head_mac_cuda", "rotated_mac_plain",
+           "rotated_mac_cuda"]
+
+
+def head_mac_plain(xext: torch.Tensor, H: torch.Tensor,
+                   ratio: int) -> torch.Tensor:
+    """``acc[i] = sum_p xext[P+i-p] * H[p]``: ``xext [2, D, C, F]`` with
+    ``D >= P + ratio`` (only the first ``P + ratio`` slots are read), ``H
+    [2, P, C, F]`` -> ``[2, ratio, C, F]``."""
+    _build.PLAIN_CALLS["head_mac"] += 1
+    return cplane_mac(xext, H, ratio)
+
+
+def rotated_mac_plain(queue: torch.Tensor, H: torch.Tensor,
+                      slot: int) -> torch.Tensor:
+    """``acc = sum_p queue[(slot - p) % P] * H[p]``: ``queue, H [2, P, C,
+    F]`` -> ``[2, C, F]``."""
+    _build.PLAIN_CALLS["rotated_mac"] += 1
+    P = H.shape[1]
+    acc_r = torch.zeros_like(queue[0, 0])
+    acc_i = torch.zeros_like(queue[0, 0])
+    for p in range(P):
+        k = (slot - p) % P
+        qr, qi = queue[0, k], queue[1, k]
+        hr, hi = H[0, p], H[1, p]
+        acc_r = acc_r + (qr * hr - qi * hi)
+        acc_i = acc_i + (qr * hi + qi * hr)
+    return torch.stack([acc_r, acc_i])
+
+
+def _planes_of(H: torch.Tensor):
+    if H.dim() != 4 or H.shape[0] != 2 or 0 in H.shape:
+        raise ValueError(f"H: shape {tuple(H.shape)}, expected [2, P, C, F]")
+    return H.shape[1:]
+
+
+def head_mac_cuda(xext: torch.Tensor, H: torch.Tensor,
+                  ratio: int) -> torch.Tensor:
+    """Launch the K7 kernel; same contract as :func:`head_mac_plain`.
+    The kernel takes the history as it is, deeper than ``P + ratio`` or
+    not, so a caller that needs fewer outputs than its history holds
+    passes the whole contiguous tensor, not a slice of it."""
+    P, C, F = _planes_of(H)
+    if xext.dim() != 4 or ratio < 1 or xext.shape[1] < P + ratio:
+        raise ValueError(f"xext: shape {tuple(xext.shape)}, expected "
+                         f"[2, >= {P + ratio}, {C}, {F}] for ratio {ratio}")
+    D = xext.shape[1]
+    _build.require(xext, "xext", (2, D, C, F))
+    _build.require(H, "H", (2, P, C, F))
+    dev = _build.require_cuda(xext=xext, H=H)
+    out = torch.empty((2, ratio, C, F), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.bbcat_head_mac(xext.data_ptr(), H.data_ptr(),
+                                  out.data_ptr(), P, D, ratio, C, F,
+                                  _build.stream_of(H))
+    _build.check(code, "head_mac")
+    _build.LAUNCHES["head_mac"] += 1
+    return out
+
+
+def rotated_mac_cuda(queue: torch.Tensor, H: torch.Tensor,
+                     slot: int) -> torch.Tensor:
+    """Launch the K9 kernel; same contract as :func:`rotated_mac_plain`."""
+    P, C, F = _planes_of(H)
+    _build.require(queue, "queue", (2, P, C, F))
+    _build.require(H, "H", (2, P, C, F))
+    dev = _build.require_cuda(queue=queue, H=H)
+    out = torch.empty((2, C, F), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.bbcat_rotated_mac(queue.data_ptr(), H.data_ptr(),
+                                     out.data_ptr(), P, C, F, slot % P,
+                                     _build.stream_of(H))
+    _build.check(code, "rotated_mac")
+    _build.LAUNCHES["rotated_mac"] += 1
+    return out

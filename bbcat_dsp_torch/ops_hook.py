@@ -29,9 +29,16 @@ from .ops.kernels.marshal import (
     gather_supers_plain,
 )
 from .ops.kernels.spectral_fir import xt_grouped_mac_cuda, xt_grouped_mac_plain
+from .ops.kernels.spectral_mac import (
+    head_mac_cuda,
+    head_mac_plain,
+    rotated_mac_cuda,
+    rotated_mac_plain,
+)
 
 __all__ = ["fused_head", "rfft_half", "xt_grouped_mac", "irfft_tail",
-           "gather_supers", "delayed_add", "counts", "reset_counts"]
+           "gather_supers", "delayed_add", "head_mac", "rotated_mac",
+           "counts", "reset_counts"]
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -82,6 +89,21 @@ def delayed_add(y_head, pending, out_tail):
     if _on_cuda(y_head):
         return delayed_add_cuda(y_head, pending, out_tail)
     return delayed_add_plain(y_head, pending, out_tail)
+
+
+def head_mac(xext, H, ratio: int):
+    """K7 (and K8): ``acc[i] = sum_p xext[P+i-p] * H[p]``, ``[2, ratio,
+    C, F]``, from the first ``P + ratio`` slots of ``xext``."""
+    if _on_cuda(xext):
+        return head_mac_cuda(xext, H, ratio)
+    return head_mac_plain(xext, H, ratio)
+
+
+def rotated_mac(queue, H, slot: int):
+    """K9: ``acc = sum_p queue[(slot - p) % P] * H[p]``, ``[2, C, F]``."""
+    if _on_cuda(queue):
+        return rotated_mac_cuda(queue, H, slot)
+    return rotated_mac_plain(queue, H, slot)
 
 
 def counts() -> dict:

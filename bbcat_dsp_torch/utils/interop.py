@@ -1,11 +1,15 @@
 """Carry IR spectra and streaming state over from the JAX package.
 
-:func:`from_jax_arrays` takes the JAX engine's ``H_head``, ``H_tail`` and
-``NonUniformState`` with every leaf already a numpy array (for example
-``jax.tree.map(np.asarray, conv.state)``) and returns the port's tensors
-on ``device``, so a stream started in one package continues in the other.
-Only the standard spectral layout crosses: a permuted-layout spectrum
-(``r * (n/r/2 + 1)`` bins instead of ``n/2 + 1``) is refused.
+:func:`from_jax_arrays` takes the two-level engine's ``H_head``, ``H_tail``
+and ``NonUniformState``, :func:`block_state_from_jax` a ``BlockConvolver``'s
+``H`` and ``ConvolverState``, with every leaf already a numpy array (for
+example ``jax.tree.map(np.asarray, conv.state)``), and each returns the
+port's tensors on ``device``, so a stream started in one package continues
+in the other.  A two-level stream crosses at a super-block boundary: the
+small-block path's partly filled super-block (``_sb_buf``, ``_sb_fill``) is
+not part of the state.  Only the standard spectral layout crosses: a
+permuted-layout spectrum (``r * (n/r/2 + 1)`` bins instead of ``n/2 + 1``)
+is refused.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from ..convolve.block import ConvolverState
 from ..convolve.fft import spectral_nbins
 from ..convolve.nonuniform import NonUniformState
 
-__all__ = ["from_jax_arrays"]
+__all__ = ["from_jax_arrays", "block_state_from_jax"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -56,3 +60,17 @@ def from_jax_arrays(H_head, H_tail, state, *, block: int, device):
     )
     return (_planes(H_head, "H_head", Fh, nh, device),
             _planes(H_tail, "H_tail", Ft, nt, device), st)
+
+
+def block_state_from_jax(H, state, *, block: int, device):
+    """``(H, ConvolverState)`` of a ``BlockConvolver`` as tensors on
+    ``device``; ``state`` has ``queue``, ``prev`` and ``step`` as numpy
+    arrays and ``block`` is the engine's block size."""
+    n = 2 * block
+    F = spectral_nbins(n)
+    st = ConvolverState(
+        queue=_planes(state.queue, "queue", F, n, device),
+        prev=_planes(state.prev, "prev", F, n, device),
+        step=int(np.asarray(state.step)),
+    )
+    return _planes(H, "H", F, n, device), st

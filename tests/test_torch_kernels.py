@@ -29,12 +29,18 @@ from bbcat_dsp_tpu.ops.pallas.perm_fft import (
     perm_irfft_tail_pallas,
     perm_rfft_half_pallas,
 )
-from bbcat_dsp_tpu.ops.pallas.spectral_fir import xt_grouped_mac_pallas
+from bbcat_dsp_tpu.ops.pallas.spectral_fir import (
+    head_mac_tiled_pallas,
+    rotated_mac_pallas,
+    xt_grouped_mac_pallas,
+)
+from bbcat_dsp_tpu.ops.pallas.spectral_mac import head_mac_pallas
 from bbcat_dsp_torch import ops_hook
 from bbcat_dsp_torch.ops.kernels import fused_head as k1
 from bbcat_dsp_torch.ops.kernels import half_fft as k34
 from bbcat_dsp_torch.ops.kernels import marshal as k56
 from bbcat_dsp_torch.ops.kernels import spectral_fir as k2
+from bbcat_dsp_torch.ops.kernels import spectral_mac as k79
 from conftest import snr_db
 
 
@@ -183,6 +189,116 @@ def test_delayed_add_plain_takes_strided_tail(rng):
     assert torch.equal(a, b)
 
 
+# ---- K7/K8 head MAC and K9 rotated MAC ----------------------------------------
+
+def _head_mac_case(rng, P, R, C, F, depth=0):
+    V, H = _arrays(rng, (2, P + R + depth, C, F), (2, P, C, F))
+    got = k79.head_mac_plain(torch.from_numpy(V), torch.from_numpy(H), R)
+    assert got.shape == (2, R, C, F)
+    return V, H, got.numpy()
+
+
+@pytest.mark.parametrize("P,R,C,F", [
+    (6, 3, 1, 17),     # one channel: K8's regime
+    (16, 1, 5, 33),    # odd C, one block (the small-block head)
+    (4, 9, 5, 9),      # R > P, odd C
+    (1, 2, 1, 5),      # one partition
+])
+def test_head_mac_plain_matches_xla_contract_and_untiled_pallas(rng, P, R,
+                                                               C, F):
+    V, H, got = _head_mac_case(rng, P, R, C, F)
+    want = adjoint.xla_head_mac(jnp.asarray(V), jnp.asarray(H), R)
+    assert snr_db(np.asarray(want), got) >= 120.0
+    pallas = head_mac_pallas(jnp.asarray(V), jnp.asarray(H), R,
+                             interpret=True)
+    assert snr_db(np.asarray(pallas), got) >= 120.0
+
+
+def test_head_mac_plain_matches_tiled_pallas(rng):
+    P, R, C, F = 8, 4, 16, 33
+    V, H, got = _head_mac_case(rng, P, R, C, F)
+    want = head_mac_tiled_pallas(jnp.asarray(V), jnp.asarray(H), R, ct=8,
+                                 interpret=True)
+    assert snr_db(np.asarray(want), got) >= 120.0
+
+
+def test_head_mac_plain_reads_the_first_slots_of_a_deeper_history(rng):
+    """A history deeper than ``P + R`` gives the MAC of its first
+    ``P + R`` slots (the crossfade's old-filter block relies on it)."""
+    P, R, C, F = 5, 1, 3, 9
+    V, H, got = _head_mac_case(rng, P, R, C, F, depth=4)
+    short = k79.head_mac_plain(torch.from_numpy(V[:, :P + R].copy()),
+                               torch.from_numpy(H), R)
+    assert torch.equal(short, torch.from_numpy(got))
+
+
+@pytest.mark.parametrize("P,C,F", [(5, 16, 33), (3, 5, 17), (1, 1, 9)])
+def test_rotated_mac_plain_matches_xla_contract_at_every_slot(rng, P, C, F):
+    q, H = _arrays(rng, (2, P, C, F), (2, P, C, F))
+    for slot in range(P):
+        want = adjoint.xla_rotated_mac(jnp.asarray(q), jnp.asarray(H), slot)
+        got = k79.rotated_mac_plain(torch.from_numpy(q), torch.from_numpy(H),
+                                    slot)
+        assert got.shape == (2, C, F)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+        assert snr_db(np.asarray(want), got.numpy()) >= 120.0
+
+
+def test_rotated_mac_plain_matches_pallas_at_every_slot(rng):
+    P, C, F = 5, 16, 65
+    q, H = _arrays(rng, (2, P, C, F), (2, P, C, F))
+    for slot in range(P):
+        want = rotated_mac_pallas(jnp.asarray(q), jnp.asarray(H), slot, ct=8,
+                                  interpret=True)
+        got = k79.rotated_mac_plain(torch.from_numpy(q), torch.from_numpy(H),
+                                    slot)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+        assert snr_db(np.asarray(want), got.numpy()) >= 120.0
+
+
+def test_plain_k1_and_k2_do_not_count_as_head_mac(rng):
+    """K1's and K2's plain versions share the MAC with K7's plain version
+    but not its count."""
+    ops_hook.reset_counts()
+    C, P, B, R = 3, 2, 32, 2
+    ins = [torch.from_numpy(a) for a in _head_inputs(rng, C, P, B, R)]
+    ops_hook.fused_head(*ins, B)
+    q = torch.zeros(2, 2, C, 9)
+    ops_hook.xt_grouped_mac(q, q, q, 0)
+    plain = ops_hook.counts()["plain"]
+    assert plain["head_mac"] == 0 and plain["rotated_mac"] == 0
+    assert plain["fused_head"] == plain["xt_grouped_mac"] == 1
+
+
+def test_mac_wrappers_refuse_what_the_kernels_do_not_take():
+    C, P, F = 3, 4, 9
+    V, H = torch.zeros(2, P + 2, C, F), torch.zeros(2, P, C, F)
+    with pytest.raises(ValueError, match="CUDA"):
+        k79.head_mac_cuda(V, H, 2)                      # CPU tensors
+    with pytest.raises(ValueError, match="CUDA"):
+        k79.head_mac_cuda(V, H, 1)                      # deeper history
+    with pytest.raises(ValueError, match="shape"):
+        k79.head_mac_cuda(V, H, 3)                      # history too short
+    with pytest.raises(ValueError, match="shape"):
+        k79.head_mac_cuda(V[:, :, :2], H, 2)
+    with pytest.raises(ValueError, match="shape"):
+        k79.head_mac_cuda(V, H[0], 2)
+    with pytest.raises(ValueError, match="dtype"):
+        k79.head_mac_cuda(V.double(), H, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        k79.head_mac_cuda(V, H.transpose(2, 3).contiguous().transpose(2, 3),
+                          2)
+    with pytest.raises(ValueError, match="CUDA"):
+        k79.rotated_mac_cuda(H, H, 5)
+    with pytest.raises(ValueError, match="shape"):
+        k79.rotated_mac_cuda(V, H, 0)
+    with pytest.raises(ValueError, match="dtype"):
+        k79.rotated_mac_cuda(H.half(), H, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        k79.rotated_mac_cuda(H, H.transpose(2, 3).contiguous().transpose(2, 3),
+                             0)
+
+
 # ---- dispatch and the kernel wrappers' checks ---------------------------------
 
 def test_dispatch_takes_plain_versions_on_cpu_and_counts(rng):
@@ -196,6 +312,8 @@ def test_dispatch_takes_plain_versions_on_cpu_and_counts(rng):
     ops_hook.xt_grouped_mac(q, q, q, 1)
     ops_hook.gather_supers(ins[0], 2)
     ops_hook.delayed_add(ins[0], torch.zeros(2, C, B), torch.zeros(2, C, B))
+    ops_hook.head_mac(torch.zeros(2, 3, C, 9), q, 1)
+    ops_hook.rotated_mac(q, q, 1)
     counts = ops_hook.counts()
     assert counts["plain"] == dict.fromkeys(counts["plain"], 1)
     assert counts["launches"] == dict.fromkeys(counts["launches"], 0)
