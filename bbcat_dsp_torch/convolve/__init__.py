@@ -1,5 +1,6 @@
-"""Partitioned convolution: the two-level engine and the uniform
-BlockConvolver, each streaming with click-free IR exchange."""
+"""Partitioned convolution: the two-level engine, the uniform
+BlockConvolver and the MatrixConvolver, each streaming with click-free IR
+exchange."""
 
 from .block import (
     BlockConvolver,
@@ -16,6 +17,14 @@ from .fft import (
     irfft_tail_planes,
     rfft_half_planes,
     spectral_nbins,
+)
+from .matrix import (
+    MatrixConvolver,
+    filter_from_planes,
+    matrix_render,
+    matrix_step,
+    matrix_step_crossfade,
+    partition_ir_matrix,
 )
 from .nonuniform import (
     NonUniformConvolver,
@@ -37,6 +46,12 @@ __all__ = [
     "irfft_tail_planes",
     "rfft_half_planes",
     "spectral_nbins",
+    "MatrixConvolver",
+    "filter_from_planes",
+    "matrix_render",
+    "matrix_step",
+    "matrix_step_crossfade",
+    "partition_ir_matrix",
     "NonUniformConvolver",
     "NonUniformState",
     "nonuniform_render",

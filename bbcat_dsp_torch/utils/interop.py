@@ -2,7 +2,8 @@
 
 :func:`from_jax_arrays` takes the two-level engine's ``H_head``, ``H_tail``
 and ``NonUniformState``, :func:`block_state_from_jax` a ``BlockConvolver``'s
-``H`` and ``ConvolverState``, with every leaf already a numpy array (for
+``H`` and ``ConvolverState`` (:func:`matrix_state_from_jax` a
+``MatrixConvolver``'s), with every leaf already a numpy array (for
 example ``jax.tree.map(np.asarray, conv.state)``), and each returns the
 port's tensors on ``device``, so a stream started in one package continues
 in the other.  A two-level stream crosses at a super-block boundary: the
@@ -19,9 +20,15 @@ import torch
 
 from ..convolve.block import ConvolverState
 from ..convolve.fft import spectral_nbins
+from ..convolve.matrix import filter_from_planes
 from ..convolve.nonuniform import NonUniformState
+from ..filters.iir import ModalParams, ModalState
+from ..loudness.itu1770 import MeterState
+from ..models.binaural import BinauralState
 
-__all__ = ["from_jax_arrays", "block_state_from_jax"]
+__all__ = ["from_jax_arrays", "block_state_from_jax", "matrix_state_from_jax",
+           "modal_from_jax", "meter_state_from_jax", "binaural_state_from_jax",
+           "to_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -63,9 +70,9 @@ def from_jax_arrays(H_head, H_tail, state, *, block: int, device):
 
 
 def block_state_from_jax(H, state, *, block: int, device):
-    """``(H, ConvolverState)`` of a ``BlockConvolver`` as tensors on
-    ``device``; ``state`` has ``queue``, ``prev`` and ``step`` as numpy
-    arrays and ``block`` is the engine's block size."""
+    """``(H, ConvolverState)`` of a ``BlockConvolver`` (``H [2, P, C, F]``)
+    as tensors on ``device``; ``state`` has ``queue``, ``prev`` and
+    ``step`` as numpy arrays and ``block`` is the engine's block size."""
     n = 2 * block
     F = spectral_nbins(n)
     st = ConvolverState(
@@ -74,3 +81,59 @@ def block_state_from_jax(H, state, *, block: int, device):
         step=int(np.asarray(state.step)),
     )
     return _planes(H, "H", F, n, device), st
+
+
+def matrix_state_from_jax(H, state, *, block: int, device):
+    """As :func:`block_state_from_jax` for a ``MatrixConvolver``: ``H [2,
+    P, C_in, C_out, F]`` comes back as the port's complex ``[F, P, C_in,
+    C_out]``."""
+    H, st = block_state_from_jax(H, state, block=block, device=device)
+    return filter_from_planes(H), st
+
+
+def modal_from_jax(leaves, *, device):
+    """A ``ModalParams`` (fields ``b0`` .. ``p2i``) or ``ModalState``
+    (``x1`` .. ``wi``) of numpy arrays as the port's tuple on ``device``."""
+    cls = ModalParams if hasattr(leaves, "b0") else ModalState
+    return cls(*(_tensor(getattr(leaves, f), device) for f in cls._fields))
+
+
+def meter_state_from_jax(state, *, device) -> MeterState:
+    """A ``LoudnessMeter``'s ``MeterState`` of numpy arrays as the port's
+    on ``device``; assign it to the port meter's ``state``."""
+
+    def counts(a):
+        return torch.from_numpy(np.array(a, np.int32)).to(device)
+
+    return MeterState(
+        shelf=modal_from_jax(state.shelf, device=device),
+        rlb=modal_from_jax(state.rlb, device=device),
+        sq_tail=_tensor(state.sq_tail, device),
+        hist_count=counts(state.hist_count),
+        hist_sum=_tensor(state.hist_sum, device),
+        momentary_z=_tensor(state.momentary_z, device),
+        short_ring=_tensor(state.short_ring, device),
+        st_count=counts(state.st_count),
+        st_sum=_tensor(state.st_sum, device),
+        nblocks=int(np.asarray(state.nblocks)),
+    )
+
+
+def binaural_state_from_jax(H, state, *, block: int, device):
+    """``(H, BinauralState)`` of a ``BinauralRenderer`` as tensors on
+    ``device``: ``state`` has ``eq`` (one ``ModalState`` per stage) and
+    ``conv`` (a ``ConvolverState``) with numpy leaves."""
+    H, conv = matrix_state_from_jax(H, state.conv, block=block, device=device)
+    eq = tuple(modal_from_jax(s, device=device) for s in state.eq)
+    return H, BinauralState(eq=eq, conv=conv)
+
+
+def to_numpy(tree):
+    """The port's state with every tensor as a numpy array, tuples and
+    named tuples rebuilt around them; integers stay integers."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, tuple):
+        leaves = [to_numpy(t) for t in tree]
+        return type(tree)(*leaves) if hasattr(tree, "_fields") else tuple(leaves)
+    return tree

@@ -31,7 +31,28 @@ Phases, each of which exits nonzero on failure:
 7. per-block latency of both streaming paths against the block's
    deadline (block / 48 kHz), back to back and device-only, with the
    kernels and with the plain versions, and the BlockConvolver render's
-   real-time factor.
+   real-time factor;
+8. the binaural renderer (BASELINE config #3: 64 inputs x 2 ears, block
+   512, 1024-tap HRTFs, a PEQ stage on every input) over 48 blocks with an
+   HRTF exchange, held on both ears against float64 ``lfilter`` and
+   ``fftconvolve`` (before the exchange, after it has settled, and against
+   the crossfade model) with the click check, and its meter against a
+   float64 gating of the same output; a ``MatrixConvolver`` exchange of
+   one input's IRs; the matrix render's real-time factor over 128 blocks
+   and the worst ``process_block`` of both back to back against the
+   deadline (the median of three runs' worst blocks); then the render, an
+   exchange and the latency again with 32768-tap binaural room IRs
+   (P = 64);
+9. BS.1770 loudness and mixdown (BASELINE config #4: 128 channels, 1 s at
+   48 kHz): K-weighting against float64 ``lfilter`` on both branches of the
+   modal engine (T = 48000, Toeplitz; T = 4800, the general scan) and with
+   TF32 allowed by either of PyTorch's switches, each against a control
+   with the precision helper bypassed that must fall far below 90 dB;
+   integrated loudness against a float64 gating; the mixdown
+   pipeline with float and int32 formats; EBU Tech 3341 cases 1-6 and Tech
+   3342 cases 1-4; true peak of an inter-sample over; and the real-time
+   factor of the config #4 step.  Phases 8 and 9 end with a profile of a
+   binaural block and a config #4 step (device time by kernel).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches, error and times.
@@ -39,10 +60,12 @@ lists every kernel with its launches, error and times.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -106,6 +129,49 @@ def snr_db(ref, test) -> float:
         10.0 * np.log10(np.sum(ref ** 2) / p_noise))
 
 
+def lfilter64(x, c):
+    """The biquad ``c = [b0, b1, b2, a1, a2]`` over the last axis of ``x``,
+    in float64."""
+    from scipy.signal import lfilter
+
+    return lfilter(c[:3], np.r_[1.0, c[3:]], np.asarray(x, np.float64), axis=-1)
+
+
+def lkfs(z):
+    return -0.691 + 10.0 * np.log10(np.maximum(z, 1e-30))
+
+
+def gated_lkfs(z) -> float:
+    """BS.1770-4 two-stage gated loudness of block powers ``z``, float64."""
+    z = np.asarray(z, np.float64)
+    keep = lkfs(z) > -70.0
+    if not keep.any():
+        return -np.inf
+    keep &= lkfs(z) > lkfs(z[keep].mean()) - 10.0
+    return float(lkfs(z[keep].mean())) if keep.any() else -np.inf
+
+
+def block_powers64(yk, weights, start: int = 0):
+    """Weighted 400 ms block powers (100 ms hop) of K-weighted ``yk [C,
+    T]``, float64; a block that begins before the signal (``start`` < 0)
+    counts the silence before it."""
+    blk, step = int(0.4 * FS), int(0.1 * FS)
+    sq = np.concatenate([np.zeros((yk.shape[0], max(0, -start))),
+                         np.asarray(yk, np.float64) ** 2], -1)
+    n = (sq.shape[-1] - blk) // step + 1
+    ms = np.stack([sq[:, j * step:j * step + blk].mean(-1) for j in range(n)],
+                  -1)
+    return np.asarray(weights, np.float64) @ ms
+
+
+def sine(db_fs: float, seconds: float, nch: int = 2) -> np.ndarray:
+    """``[nch, T]`` 997 Hz sine at ``db_fs`` (peak re full scale), the EBU
+    Tech 3341/3342 test tone."""
+    t = np.arange(round(seconds * FS)) / FS
+    x = 10.0 ** (db_fs / 20.0) * np.sin(2 * np.pi * 997.0 * t)
+    return np.broadcast_to(x, (nch, x.size)).astype(np.float32)
+
+
 def main() -> None:
     import torch
 
@@ -122,8 +188,6 @@ def main() -> None:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
         from bbcat_dsp_torch import BlockConvolver, NonUniformConvolver, ops_hook
@@ -211,7 +275,9 @@ def main() -> None:
     # render's, the second the per-super-step branch's
     errs, bad = None, []
     for lead, n in (((6, C), 2 * SB), ((C,), 2 * SB), ((1,), 64),
-                    ((5, 3), 256), ((2,), 16384), ((7,), 2 * BLOCK)):
+                    ((5, 3), 256), ((2,), 16384), ((7,), 2 * BLOCK),
+                    ((128, C), 2 * BLOCK), ((C,), 2 * BLOCK),
+                    ((128, 2), 2 * BLOCK), ((2,), 2 * BLOCK)):
         h = n // 2
         x, planes = randn(*lead, h), randn(2, *lead, h + 1)
         got = (k34.rfft_half_cuda(x, n), k34.irfft_tail_cuda(planes, n))
@@ -634,6 +700,404 @@ def main() -> None:
         print(f"BlockConvolver.process real-time factor ({label}), "
               f"T = {T_RENDER}: {audio_s / (ms / 1e3):.2f} on {card}",
               flush=True)
+
+    # ---- 8. binaural renderer and matrix convolver (config #3) -------------------
+    from bbcat_dsp_torch import BinauralRenderer, MatrixConvolver
+    from bbcat_dsp_torch.filters import FilterType, biquad_coeffs
+    from bbcat_dsp_torch.loudness import k_weighting_coeffs
+
+    MATRIX_KERNELS = {"rfft_half", "irfft_tail"}
+    CI, N_HRTF, N_BRIR = 64, 1024, 32768   # scripts/bench_all.py config #3
+    eq = biquad_coeffs(FilterType.PEQ, 1000.0, FS, gain=4.0)
+    shelf, rlb = k_weighting_coeffs(FS)
+
+    def kweight64(x):
+        return lfilter64(lfilter64(x, shelf), rlb)
+
+    def hrtfs(n: int, decay: float):
+        """Decaying noise IRs ``[CI, 2, n]`` of unit energy per input and
+        ear, so 64 inputs at 0.05 rms render near -2 LUFS: inside the
+        meter's histogram, which ends at +10 LUFS."""
+        h = rng.standard_normal((CI, 2, n)) * np.exp(-np.arange(n) / decay)
+        return h / np.sqrt(np.sum(h ** 2, axis=-1, keepdims=True))
+
+    def mix64(x, h):
+        """Sum over the inputs of each input's float64 convolution: ``[2,
+        T]``."""
+        T = x.shape[-1]
+        return fftconvolve(np.asarray(x, np.float64)[:, None], h,
+                           axes=-1)[..., :T].sum(0)
+
+    def run_stream(label, call, swap, nb, exchange):
+        """``nb`` blocks of a fresh signal through ``call``, ``exchange()``
+        before block ``swap``; launch check; ``(x, y)`` on the host."""
+        x = (rng.standard_normal((CI, nb * BLOCK)) * 0.05).astype(np.float32)
+        xd = torch.from_numpy(x).to(dev)
+        torch.cuda.synchronize()
+        ops_hook.reset_counts()
+        ys = []
+        for i in range(nb):
+            if i == swap:
+                exchange()
+            ys.append(call(xd[:, i * BLOCK:(i + 1) * BLOCK]))
+        torch.cuda.synchronize()
+        check_path(label, ops_hook.counts(), MATRIX_KERNELS)
+        y = torch.cat(ys, dim=-1).cpu().numpy()
+        if y.shape != (2, x.shape[1]) or not np.all(np.isfinite(y)):
+            fail(f"{label}: output shape {y.shape} or non-finite values")
+        return x, y
+
+    def hold_exchange(label, old, new, y, swap):
+        s = swap * BLOCK
+        for o, ear in enumerate(("left", "right")):
+            tag = f"{label}, {ear} ear"
+            hold(f"{tag}, before the exchange", old[o], y[o], hi=s)
+            hold(f"{tag}, settled on the new IRs", new[o], y[o], s + BLOCK)
+            hold(f"{tag}, whole stream against the crossfade model",
+                 fade(old[o], new[o], s, BLOCK), y[o])
+            if not click_free(y[o]):
+                fail(f"{tag}: a click")
+
+    # the renderer: 48 blocks, the HRTF set exchanged at block 16
+    h1, h2 = hrtfs(N_HRTF, 200.0), hrtfs(N_HRTF, 200.0)
+    rend = BinauralRenderer(h1, block=BLOCK, eq_stages=[eq], fs=FS, device=dev)
+    x, y = run_stream("binaural renderer", rend.process_block, 16, 48,
+                      lambda: rend.set_hrtf(h2))
+    xe = lfilter64(x, eq)
+    hold_exchange("binaural", mix64(xe, h1), mix64(xe, h2), y, 16)
+    # its meter has had every whole 100 ms of the output: the last gating
+    # block is momentary; the stream's first three blocks span the silence
+    # before it and stay out of the integrated gate
+    fed = (y.shape[1] // rend.meter.step) * rend.meter.step
+    z = block_powers64(kweight64(y)[:, :fed], [1.0, 1.0],
+                       start=-(rend.meter.blk - rend.meter.step))
+    got = rend.loudness()
+    for key, want in (("momentary_lkfs", float(lkfs(z[-1]))),
+                      ("integrated_lkfs", gated_lkfs(z[3:]))):
+        print(f"binaural meter {key}: {got[key]:.4f} against float64 "
+              f"{want:.4f}", flush=True)
+        if not abs(got[key] - want) <= 0.01:
+            fail(f"binaural meter {key}: {got[key]:.4f} != {want:.4f}")
+
+    # a MatrixConvolver exchange of input 7's IRs only, at block 8
+    k_in = 7
+    mconv = MatrixConvolver(h1, block=BLOCK, device=dev)
+    h_new = h1.copy()
+    h_new[k_in] = hrtfs(N_HRTF, 200.0)[k_in]
+    x, y = run_stream("matrix per-input exchange", mconv.process_block, 8, 24,
+                      lambda: mconv.set_filter_matrix(h_new[k_in],
+                                                      in_channel=k_in))
+    hold_exchange(f"matrix exchange of input {k_in}", mix64(x, h1),
+                  mix64(x, h_new), y, 8)
+
+    def device_ms(fn, iters: int) -> str:
+        """Median device time of ``fn`` over ``iters`` calls, each behind a
+        ~15 ms spin (``per_block_ms``): the host enqueues a whole call
+        before the card starts it, so the events see no launch gaps."""
+        ts = [per_block_ms(lambda _: fn(), 1, True) for _ in range(iters)]
+        if None in ts:
+            return "not resolved (host slower than the spin)"
+        return f"{statistics.median(t[0] for t in ts):.4f} ms"
+
+    def matrix_timings(label, conv):
+        """The render's real-time factor over 128-block renders of distinct
+        signals, back to back and device-only."""
+        nren, T = 8, 128 * BLOCK
+        xs = [randn(CI, T) for _ in range(nren + 2)]
+        conv.reset()
+        torch.cuda.synchronize()
+        ops_hook.reset_counts()
+        for r in range(2):
+            conv.process(xs[r])
+        torch.cuda.synchronize()
+        check_path(f"{label} render", ops_hook.counts(), MATRIX_KERNELS)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for r in range(nren):
+            conv.process(xs[2 + r])
+        b.record()
+        torch.cuda.synchronize()
+        b2b = a.elapsed_time(b) / nren
+        it = iter(range(10 ** 6))
+        devo = device_ms(lambda: conv.process(xs[2 + next(it) % nren]), nren)
+        print(f"{label} render, 128 blocks: {b2b:.4f} ms back to back, "
+              f"{devo} device-only median, "
+              f"{T / FS / (b2b / 1e3):.2f} x real time ({card})", flush=True)
+        return b2b
+
+    def block_latency(label, call, repeats: int = 3):
+        """Blocks of ``call`` back to back, 48 at a time, ``repeats``
+        times, and device-only one block per spin over 20.  The median of
+        the repeats' worst blocks back to back is held to the deadline:
+        that is what a live caller feels, and the median keeps one stall
+        of a shared host from deciding the run."""
+        xl = randn(CI, 96 * BLOCK)
+        at = iter(range(10 ** 6))
+
+        def step(_):
+            i = next(at) % 96
+            call(xl[:, i * BLOCK:(i + 1) * BLOCK])
+
+        for i in range(8):
+            step(i)
+        runs = [per_block_ms(step, 48, False) for _ in range(repeats)]
+        devo = [per_block_ms(step, 1, True) for _ in range(20)]
+        dev_txt = ("device-only not resolved (host slower than the spin)"
+                   if None in devo else
+                   f"device-only mean {statistics.mean(t[0] for t in devo):.4f}"
+                   f" ms, max {max(t[0] for t in devo):.4f} ms")
+        worsts = [max(b2b) for b2b in runs]
+        worst = statistics.median(worsts)
+        print(f"latency {label}: back to back mean "
+              f"{statistics.mean(t for b2b in runs for t in b2b):.4f} ms, "
+              "worst " + " / ".join(f"{w:.4f}" for w in worsts) + " ms, "
+              f"median worst {worst:.4f} ms ({DEADLINE_MS / worst:.1f}x "
+              f"inside the {DEADLINE_MS:.4f} ms deadline); {dev_txt} ({card})",
+              flush=True)
+        if not worst < DEADLINE_MS:
+            fail(f"latency {label}: median worst block {worst:.4f} ms misses "
+                 f"the {DEADLINE_MS:.4f} ms deadline")
+
+    matrix_timings("MatrixConvolver 64x2, 1024 taps", mconv)
+    block_latency("BinauralRenderer.process_block (64x2, 1024 taps, EQ, "
+                  "meter)", rend.process_block)
+    block_latency("MatrixConvolver.process_block (64x2, 1024 taps)",
+                  mconv.process_block)
+
+    # binaural room IRs: 32768 taps, P = 64, H of 33.6 MB
+    b1, b2 = hrtfs(N_BRIR, 4000.0), hrtfs(N_BRIR, 4000.0)
+    room = MatrixConvolver(b1, block=BLOCK, device=dev)
+    if room.nparts != N_BRIR // BLOCK:
+        fail(f"room MatrixConvolver holds {room.nparts} partitions")
+    print(f"room IRs: H {room.H.numel() * 8 / 1e6:.1f} MB", flush=True)
+    x, y = run_stream("room IR exchange", room.process_block, 8, 24,
+                      lambda: room.set_filter_matrix(b2))
+    hold_exchange("room IR exchange", mix64(x, b1), mix64(x, b2), y, 8)
+    matrix_timings("MatrixConvolver 64x2, 32768 taps", room)
+    block_latency("MatrixConvolver.process_block (64x2, 32768 taps)",
+                  room.process_block)
+
+    # ---- 9. loudness and mixdown (config #4) ------------------------------------
+    from bbcat_dsp_torch import LoudnessMeter, MixdownPipeline
+    from bbcat_dsp_torch.filters import iir
+    from bbcat_dsp_torch.formats import SampleFormat, float_to_int32, int32_to_float
+    from bbcat_dsp_torch.loudness import integrated_loudness, k_weight, true_peak_db
+    from bbcat_dsp_torch.loudness.truepeak import _H as TP_TAPS
+
+    C4, T4, STEP4 = 128, int(FS), int(0.1 * FS)
+    levels = 10.0 ** (-rng.uniform(0.0, 20.0, C4) / 20.0)
+    x = (rng.standard_normal((C4, T4)) * 0.1 * levels[:, None]).astype(
+        np.float32)
+    xd = torch.from_numpy(x).to(dev)
+    ref = kweight64(x)
+    torch.cuda.synchronize()
+    ops_hook.reset_counts()
+
+    def hold_channels(label, ref, y):
+        """Every channel at >= 90 dB against float64; prints the worst."""
+        worst = min(snr_db(r, t) for r, t in zip(ref, y))
+        print(f"{label}: worst channel {worst:.2f} dB", flush=True)
+        if not worst >= 90.0:
+            fail(f"{label}: {worst:.2f} dB < 90 against float64")
+
+    y48, _ = k_weight(xd, FS)                       # one call: Toeplitz
+    st, parts = None, []
+    for k in range(T4 // STEP4):                    # 4800 a call: the scan
+        yk, st = k_weight(xd[:, k * STEP4:(k + 1) * STEP4], FS, st)
+        parts.append(yk)
+    hold_channels("k_weight T = 48000 (Toeplitz products)", ref,
+                  y48.cpu().numpy())
+    hold_channels("k_weight 10 calls of T = 4800 (general scan)", ref,
+                  torch.cat(parts, -1).cpu().numpy())
+    def hold_tf32(label, allow, restore):
+        """A caller that allows TF32 globally (``allow()``): the products
+        stay full float32.  The control, the same call with the precision
+        helper bypassed, must fall far below 90 dB, or the switch no
+        longer enables TF32 and the check proves nothing."""
+        allow()
+        try:
+            ytf, _ = k_weight(xd, FS)
+            real_f32, iir.full_f32 = iir.full_f32, contextlib.nullcontext
+            try:
+                ybare, _ = k_weight(xd, FS)
+            finally:
+                iir.full_f32 = real_f32
+        finally:
+            restore()
+        hold_channels(f"k_weight T = 48000 with {label}", ref,
+                      ytf.cpu().numpy())
+        bare = min(snr_db(r, t) for r, t in zip(ref, ybare.cpu().numpy()))
+        print(f"k_weight T = 48000 with {label} and the precision helper "
+              f"bypassed (the control): worst channel {bare:.2f} dB",
+              flush=True)
+        if not bare < 80.0:
+            fail(f"TF32 control with {label}: {bare:.2f} dB, not far below "
+                 "90 dB: the switch did not enable TF32")
+
+    matmul = torch.backends.cuda.matmul
+    prev_allow = matmul.allow_tf32
+    hold_tf32("allow_tf32 = True", lambda: setattr(matmul, "allow_tf32", True),
+              lambda: setattr(matmul, "allow_tf32", prev_allow))
+    prev_prec = torch.get_float32_matmul_precision()
+    hold_tf32('set_float32_matmul_precision("high")',
+              lambda: torch.set_float32_matmul_precision("high"),
+              lambda: torch.set_float32_matmul_precision(prev_prec))
+
+    L = float(integrated_loudness(xd, FS))
+    want = gated_lkfs(block_powers64(ref, np.ones(C4)))
+    print(f"integrated_loudness 128 ch, 1 s: {L:.4f} LKFS against float64 "
+          f"{want:.4f}", flush=True)
+    if not abs(L - want) <= 0.01:
+        fail(f"integrated_loudness {L:.4f} != float64 {want:.4f}")
+
+    gains = rng.standard_normal((2, C4)) * 0.05
+    mix_ref = gains @ x.astype(np.float64)
+    for fin, fout in (("FLOAT", "FLOAT"), ("INT32", "INT32")):
+        pipe = MixdownPipeline(gains, FS, in_format=SampleFormat[fin],
+                               out_format=SampleFormat[fout], device=dev)
+        xin = float_to_int32(xd) if fin == "INT32" else xd
+        ys = [pipe.process_block(xin[:, k * STEP4:(k + 1) * STEP4])
+              for k in range(T4 // STEP4)]
+        y = torch.cat(ys, -1)
+        y = (int32_to_float(y) if fout == "INT32" else y).cpu().numpy()
+        hold_channels(f"MixdownPipeline {fin} in, {fout} out", mix_ref, y)
+        L = pipe.integrated_loudness()
+        want = gated_lkfs(block_powers64(kweight64(mix_ref), [1.0, 1.0]))
+        print(f"MixdownPipeline {fin}/{fout} integrated loudness {L:.4f} "
+              f"LKFS against float64 {want:.4f}", flush=True)
+        if not abs(L - want) <= 0.01:
+            fail(f"MixdownPipeline {fin}/{fout}: {L:.4f} != {want:.4f}")
+
+    def meter_feed(x, nch=2):
+        m = LoudnessMeter(nch, FS, device=dev)
+        xd = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        T, chunk = x.shape[-1], int(FS)
+        for i in range(0, T - chunk + 1, chunk):
+            m.process(xd[:, i:i + chunk])
+        rem = (T % chunk) - (T % chunk) % m.step
+        if rem:
+            m.process(xd[:, T - T % chunk:T - T % chunk + rem])
+        return m
+
+    def seq(*segs):
+        return np.concatenate([sine(db, s) for db, s in segs], -1)
+
+    # EBU Tech 3341 cases 1-6 (+/- 0.1 LU): (signal, loudness, meter checks)
+    ebu3341 = {
+        1: (sine(-23.0, 20.0), -23.0, "msi"),
+        2: (sine(-33.0, 20.0), -33.0, "msi"),
+        3: (seq((-36.0, 10.0), (-23.0, 60.0), (-36.0, 10.0)), -23.0, "i"),
+        4: (seq((-72.0, 10.0), (-36.0, 10.0), (-23.0, 60.0), (-36.0, 10.0),
+                (-72.0, 10.0)), -23.0, "i"),
+        5: (seq((-26.0, 20.0), (-20.0, 20.1), (-26.0, 20.0)), -23.0, "i"),
+        6: (np.concatenate([sine(db, 20.0, nch=1) for db in
+                            (-28.0, -28.0, -24.0, -30.0, -30.0)]), -23.0, "i"),
+    }
+    for case, (sig, want, checks) in ebu3341.items():
+        m = meter_feed(sig, sig.shape[0])
+        got = {"one-shot I": float(integrated_loudness(
+            torch.from_numpy(sig).to(dev), FS)), "meter I": m.integrated()}
+        if checks == "msi":
+            got.update({"M": m.momentary(), "S": m.short_term()})
+        print(f"EBU 3341 case {case}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in got.items()) + f" (want {want})",
+            flush=True)
+        if not all(abs(v - want) <= 0.1 for v in got.values()):
+            fail(f"EBU 3341 case {case} outside +/- 0.1 LU")
+    for case, segs, want in (
+            (1, [(-20.0, 20.0), (-30.0, 20.0)], 10.0),
+            (2, [(-15.0, 20.0), (-30.0, 20.0)], 15.0),
+            (3, [(-40.0, 20.0), (-20.0, 20.0)], 20.0),
+            (4, [(-50.0, 20.0), (-35.0, 20.0), (-20.0, 20.0), (-35.0, 20.0),
+                 (-50.0, 20.0)], 15.0)):
+        lra = meter_feed(seq(*segs)).loudness_range()
+        print(f"EBU 3342 case {case}: LRA {lra:.3f} LU (want {want})",
+              flush=True)
+        if not abs(lra - want) <= 1.0:
+            fail(f"EBU 3342 case {case}: LRA {lra:.3f} outside +/- 1 LU")
+
+    # true peak of the inter-sample over of tests/test_loudness.py, against
+    # the same interpolator in float64
+    s = np.sin(2 * np.pi * np.arange(4800) / 4 + np.pi / 4)[None].astype(
+        np.float32)
+    tp = float(true_peak_db(torch.from_numpy(s).to(dev))[0])
+    win = np.lib.stride_tricks.sliding_window_view(s[0].astype(np.float64), 12)
+    tp64 = 20 * np.log10(max(np.abs(win @ TP_TAPS.T.astype(np.float64)).max(),
+                             np.abs(s).max()))
+    print(f"true_peak_db inter-sample over: {tp:.5f} dBTP against float64 "
+          f"{tp64:.5f}, sample peak {20 * np.log10(np.abs(s).max()):.3f} dB",
+          flush=True)
+    if not (abs(tp - tp64) <= 1e-3 and abs(tp) < 0.35
+            and tp > 20 * np.log10(np.abs(s).max()) + 0.5):
+        fail(f"true peak {tp:.5f} dBTP")
+    counts = ops_hook.counts()
+    if any(counts["plain"].values()):
+        fail(f"loudness phase: plain versions ran: {counts['plain']}")
+
+    # the config #4 step: BS.1770 metering of the 128 inputs, and the int32
+    # mixdown of the same second to 2 channels with the mix's meter
+    meter128 = LoudnessMeter(C4, FS, device=dev)
+    mixdown = MixdownPipeline(gains, FS, in_format=SampleFormat.INT32,
+                              device=dev)
+    xs4 = [float_to_int32(randn(C4, T4) * 0.1) for _ in range(10)]
+
+    def step4(xi):
+        meter128.process(int32_to_float(xi))
+        mixdown.process_block(xi)
+
+    for xi in xs4[:2]:
+        step4(xi)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for xi in xs4[2:]:
+        step4(xi)
+    b.record()
+    torch.cuda.synchronize()
+    b2b = a.elapsed_time(b) / 8
+    it = iter(range(10 ** 6))
+    devo = device_ms(lambda: step4(xs4[2 + next(it) % 8]), 8)
+    print(f"config #4 step (128 ch x 1 s: meter + int32 mixdown): {b2b:.4f} "
+          f"ms back to back, {devo} device-only median, "
+          f"{1e3 / b2b:.2f} x real time ({card})", flush=True)
+
+    # where the device time goes: kernels by name in a profile
+    from torch.profiler import ProfilerActivity, profile
+
+    def where_time_goes(label, fn, n: int) -> None:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(n):
+                fn(i)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())["traceEvents"]
+        by_name: dict[str, list] = {}
+        for ev in events:
+            if ev.get("cat") == "kernel":
+                by_name.setdefault(ev["name"], []).append(ev["dur"])
+        busy = sum(sum(d) for d in by_name.values()) / n
+        launches = sum(len(d) for d in by_name.values()) / n
+        print(f"profile {label}: {busy:.1f} us device busy per call in "
+              f"{launches:.1f} launches, {wall:.4f} ms wall per call "
+              f"(profiler on) ({card})", flush=True)
+        top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
+        for name, durs in top:
+            print(f"  {sum(durs) / n:9.1f} us {100 * sum(durs) / n / busy:5.1f}%"
+                  f" {len(durs) / n:6.1f}x  {name[:90]}", flush=True)
+
+    xl = randn(CI, 40 * BLOCK)
+    where_time_goes("BinauralRenderer.process_block (mean of 40 blocks)",
+                    lambda i: rend.process_block(
+                        xl[:, i * BLOCK:(i + 1) * BLOCK]), 40)
+    where_time_goes("config #4 step", lambda i: step4(xs4[i % 10]), 4)
 
     for name in results:
         results[name]["launches"] = sum(c[name] for c in path_launches)
