@@ -11,76 +11,81 @@
 //   rotated_mac  acc    = sum_p queue[(slot - p) mod P] * H[p]
 //
 // Bound: memory.  Each output costs one complex MAC (8 flops) per
-// partition against at least 16 bytes read, far below the card's ratio.
-// Design: one thread per (c, f) over the flat C*F axis, so a warp reads 32
-// consecutive floats of every plane; p accumulates in the reference's order
-// (p = 0 .. P-1) in float32.  head_mac walks R in tiles of kTile outputs
-// held in registers.  Within a tile, partition p + 1 needs the history
-// entries of partition p shifted by one slot, so a register window slides
-// down the history: each partition loads one new history entry and its H
-// bin, and H is read once per tile.  The history may be deeper than P + R;
-// the kernel reads only its first P + R slots (the crossfade's old-filter
-// block reads the first P + 1 of a P + ratio history without a copy).
+// partition against at least 16 bytes read, far below the card's ratio:
+// the history's first P + R slots, H and the output move once (58.8 MB,
+// 17.6 us at 3.35 TB/s, for C = 64, P = 64, R = 48, F = 513).  What a
+// thread waits for is L2 latency: its loads are a chain, and one thread
+// per (c, f) walking every output tile in turn leaves too few chains in
+// flight (two CTAs an SM at C * F = 32832).  Design: one thread per (c, f)
+// over the flat C*F axis, so a warp reads 32 consecutive floats of every
+// plane, and per tile of outputs, so the grid is (C*F / 128, R tiles); p
+// accumulates in the reference's order (p = 0 .. P-1) in float32.  A
+// tile's outputs live in registers and a register window slides down the
+// history (window_mac.cuh): each partition loads one new history entry and
+// its H bin, with the loads of 8 partitions started before their MACs.  The
+// tile is 16 outputs where R > 8 (H and the history are then read R/16
+// times), 8 for the streaming super-step's R <= 8 and 1 for the single
+// block.  The history may be deeper than P + R; the kernel reads only its
+// first P + R slots (the crossfade's old-filter block reads the first
+// P + 1 of a P + ratio history without a copy).
 
 #include <cuda_runtime.h>
+
+#include "window_mac.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kTile = 8;
+// partitions whose loads go ahead of their MACs: 8, but 4 for the single
+// block, whose threads then take fewer registers (10% faster at F = 4097)
+template <int RT>
+constexpr int kAheadOf = RT == 1 ? 4 : 8;
 
-__global__ void head_mac_kernel(const float* __restrict__ xext,
-                                const float* __restrict__ H,
-                                float* __restrict__ out, int P, int D, int R,
-                                long long S) {
+// One bin of the re/im planes for window_mac.  Entry d of the history is
+// slot P + i0 - d, zero past the tile's live outputs.
+struct HistoryAt {
+  const float* re;  // slot P + i0
+  const float* im;
+  long long S;  // from one slot to the next
+  int newest;   // slots after P + i0 that may be read: R - 1 - i0
+  __device__ __forceinline__ float2 operator()(int d) const {
+    const long long o = -static_cast<long long>(d) * S;
+    return (-d <= newest) ? make_float2(re[o], im[o])
+                          : make_float2(0.0f, 0.0f);
+  }
+};
+
+struct FilterAt {
+  const float* re;  // partition 0
+  const float* im;
+  long long S;
+  __device__ __forceinline__ float2 operator()(int p) const {
+    return make_float2(re[p * S], im[p * S]);
+  }
+};
+
+template <int RT>
+__global__ void __launch_bounds__(kThreads)
+head_mac_kernel(const float* __restrict__ xext, const float* __restrict__ H,
+                float* __restrict__ out, int P, int D, int R, long long S) {
   const long long n = static_cast<long long>(blockIdx.x) * blockDim.x +
                       threadIdx.x;
   if (n >= S) return;
-  const float* xr = xext + n;
-  const float* xi = xr + static_cast<long long>(D) * S;
-  const float* hr = H + n;
-  const float* hi = hr + static_cast<long long>(P) * S;
-  float* yr = out + n;
+  const int i0 = blockIdx.y * RT;
+  const float* xr = xext + static_cast<long long>(P + i0) * S + n;
+  const HistoryAt hist{xr, xr + static_cast<long long>(D) * S, S, R - 1 - i0};
+  const FilterAt filt{H + n, H + static_cast<long long>(P) * S + n, S};
+  float2 acc[RT];
+#pragma unroll
+  for (int k = 0; k < RT; ++k) acc[k] = make_float2(0.0f, 0.0f);
+  bbcat::window_mac<RT, kAheadOf<RT>>(acc, P, hist, filt);
+  float* yr = out + static_cast<long long>(i0) * S + n;
   float* yi = yr + static_cast<long long>(R) * S;
-
-  for (int i0 = 0; i0 < R; i0 += kTile) {
-    // w[k] = xext[P + i0 + k - p] at partition p; lanes past R stay dead
-    float wr[kTile], wi[kTile], ar[kTile], ai[kTile];
 #pragma unroll
-    for (int k = 0; k < kTile; ++k) {
-      const bool live = i0 + k < R;
-      const long long o = static_cast<long long>(P + i0 + k) * S;
-      wr[k] = live ? xr[o] : 0.0f;
-      wi[k] = live ? xi[o] : 0.0f;
-      ar[k] = 0.0f;
-      ai[k] = 0.0f;
-    }
-    for (int p = 0; p < P; ++p) {
-      const long long h = static_cast<long long>(p) * S;
-      const float gr = hr[h], gi = hi[h];
-#pragma unroll
-      for (int k = 0; k < kTile; ++k) {
-        ar[k] += wr[k] * gr - wi[k] * gi;
-        ai[k] += wr[k] * gi + wi[k] * gr;
-      }
-      if (p + 1 < P) {
-#pragma unroll
-        for (int k = kTile - 1; k > 0; --k) {
-          wr[k] = wr[k - 1];
-          wi[k] = wi[k - 1];
-        }
-        const long long o = static_cast<long long>(P + i0 - p - 1) * S;
-        wr[0] = xr[o];
-        wi[0] = xi[o];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kTile; ++k) {
-      if (i0 + k < R) {
-        const long long o = static_cast<long long>(i0 + k) * S;
-        yr[o] = ar[k];
-        yi[o] = ai[k];
-      }
+  for (int k = 0; k < RT; ++k) {
+    if (i0 + k < R) {
+      yr[k * S] = acc[k].x;
+      yi[k * S] = acc[k].y;
     }
   }
 }
@@ -121,8 +126,17 @@ extern "C" {
 int bbcat_head_mac(const float* xext, const float* H, float* out, int P,
                    int D, int R, int C, int F, cudaStream_t stream) {
   const long long S = static_cast<long long>(C) * F;
-  head_mac_kernel<<<blocks_for(S), kThreads, 0, stream>>>(xext, H, out, P, D,
-                                                          R, S);
+  if (P < 1 || R < 1 || D < P + R || S < 1 || R > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tile = (R == 1) ? 1 : (R <= 8 ? 8 : 16);
+  const dim3 grid(blocks_for(S), (R + tile - 1) / tile);
+  if (tile == 1)
+    head_mac_kernel<1><<<grid, kThreads, 0, stream>>>(xext, H, out, P, D, R, S);
+  else if (tile == 8)
+    head_mac_kernel<8><<<grid, kThreads, 0, stream>>>(xext, H, out, P, D, R, S);
+  else
+    head_mac_kernel<16><<<grid, kThreads, 0, stream>>>(xext, H, out, P, D, R,
+                                                       S);
   return static_cast<int>(cudaGetLastError());
 }
 

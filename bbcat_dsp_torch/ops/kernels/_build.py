@@ -45,7 +45,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argument types (pointers, ints, then the stream)
 _SIGNATURES = {
-    "bbcat_fused_head": [_P] * 8 + [_I] * 4 + [_P],
+    "bbcat_fused_head": [_P] * 9 + [_I] * 4 + [_P],
     "bbcat_rfft_half": [_P] * 3 + [_I] * 2 + [_P],
     "bbcat_irfft_tail": [_P] * 3 + [_I] * 2 + [_P],
     "bbcat_xt_grouped_mac": [_P] * 4 + [_I] * 4 + [_P],

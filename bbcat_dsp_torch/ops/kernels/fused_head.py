@@ -2,13 +2,16 @@
 
 ``fused_head_cuda`` launches ``csrc/fused_head.cu`` (the port of
 ``fused_head_pallas`` in the JAX package's ``ops/pallas/fused_head.py``), which
-carries its own FFTs.  ``fused_head_plain`` is its PyTorch version, the
-unfused ``_head_spectra -> MAC -> irfft_tail_planes`` composition of
+carries its own FFTs: one call is two launches on the stream, every block's
+window transform, then the MAC and the inverses, and counts as one launch
+of the kernel.  ``fused_head_plain`` is its PyTorch version, the unfused
+``_head_spectra -> MAC -> irfft_tail_planes`` composition of
 ``adjoint.xla_fused_head``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ...convolve.fft import (
@@ -20,6 +23,20 @@ from . import _build
 from .spectral_fir import cplane_mac
 
 __all__ = ["fused_head_plain", "fused_head_cuda"]
+
+
+_TWIDDLES: dict[tuple[int, torch.device], torch.Tensor] = {}
+
+
+def _twiddles(B: int, device: torch.device) -> torch.Tensor:
+    """The kernel's ``[2B, 2]`` float32 table ``exp(-2 pi i m / 2B)`` on
+    ``device``, computed in float64 once per block size and card."""
+    key = (B, device)
+    if key not in _TWIDDLES:
+        ang = -np.pi * np.arange(2 * B) / B
+        tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+        _TWIDDLES[key] = torch.from_numpy(tw).to(device)
+    return _TWIDDLES[key]
 
 
 def _head_spectra(prev_xt: torch.Tensor, x: torch.Tensor, B: int,
@@ -76,13 +93,17 @@ def fused_head_cuda(x: torch.Tensor, xcarry: torch.Tensor,
     y = torch.empty_like(x)
     xcarry_out = torch.empty_like(xcarry)
     prev_out = torch.empty_like(prev)
-    ring = torch.empty((C, P, F, 2), dtype=torch.float32, device=dev)
+    R = T // B
+    # every window of the call, behind the carried ones, as complex pairs
+    win = torch.empty((C, P + R, F, 2), dtype=torch.float32, device=dev)
+    tw = _twiddles(B, dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.bbcat_fused_head(
             x.data_ptr(), xcarry.data_ptr(), prev.data_ptr(), H.data_ptr(),
-            y.data_ptr(), xcarry_out.data_ptr(), prev_out.data_ptr(),
-            ring.data_ptr(), C, P, B, T // B, _build.stream_of(x))
+            tw.data_ptr(), y.data_ptr(), xcarry_out.data_ptr(),
+            prev_out.data_ptr(), win.data_ptr(), C, P, B, R,
+            _build.stream_of(x))
     _build.check(code, "fused_head")
     _build.LAUNCHES["fused_head"] += 1
     return y, xcarry_out, prev_out

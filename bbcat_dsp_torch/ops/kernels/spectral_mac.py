@@ -56,6 +56,7 @@ def _planes_of(H: torch.Tensor):
 def head_mac_cuda(xext: torch.Tensor, H: torch.Tensor,
                   ratio: int) -> torch.Tensor:
     """Launch the K7 kernel; same contract as :func:`head_mac_plain`.
+    One launch over (bins, tiles of outputs) at any ``ratio`` up to 65535.
     The kernel takes the history as it is, deeper than ``P + ratio`` or
     not, so a caller that needs fewer outputs than its history holds
     passes the whole contiguous tensor, not a slice of it."""

@@ -10,8 +10,13 @@ Phases, each of which exits nonzero on failure:
 2. build the eight CUDA kernels from ``bbcat_dsp_torch/csrc`` with nvcc,
    one compiler per source, all at once;
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes its paths give it and at small and odd ones, with times (CUDA
-   events, median of 20 launches) at the main paths' shapes;
+   shapes its paths give it and at small and odd ones (for K1 and K7 also
+   across their output tiles' edges), with times (CUDA events, median of
+   20 launches) at the main paths' shapes, each beside its bound: the
+   larger of the bytes the function must move over 3.35 TB/s and its
+   operations over 67 TFLOP/s (float32), and for K3, K4 and K5 beside the
+   one PyTorch call that computes the same (``torch.fft.rfft``, ``irfft``
+   and a slice, ``permute().contiguous()``), which the port never calls;
 4. the headline engine (64 channels x 32768-tap IRs, block 512, ratio 8)
    over a stream of distinct signals that takes all three render
    branches, held against a float64 ``scipy.signal.fftconvolve`` at
@@ -51,11 +56,12 @@ Phases, each of which exits nonzero on failure:
    integrated loudness against a float64 gating; the mixdown
    pipeline with float and int32 formats; EBU Tech 3341 cases 1-6 and Tech
    3342 cases 1-4; true peak of an inter-sample over; and the real-time
-   factor of the config #4 step.  Phases 8 and 9 end with a profile of a
-   binaural block and a config #4 step (device time by kernel).
+   factor of the config #4 step.  Phase 8 ends with the kernel launches
+   of one call of each entry point, phase 9 with a profile of the headline
+   render, a binaural block and a config #4 step (device time by kernel).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists every kernel with its launches, error and times.
+lists every kernel with its launches, error, times and bound.
 """
 
 from __future__ import annotations
@@ -79,6 +85,8 @@ P_UNIFORM = N // BLOCK                   # BlockConvolver partitions: 64
 DEADLINE_MS = 1e3 * BLOCK / FS           # one block of audio: 10.667 ms
 CHECKED = (0, C // 2 - 1, C - 1)         # channels 0, 31, 63
 SEED = 0
+HBM_BYTES_PER_S = 3.35e12                # H100 SXM data sheet
+F32_FLOPS_PER_S = 67e12                  # float32 outside the tensor cores
 
 # the kernels each path must launch
 RENDER_KERNELS = {"fused_head", "rfft_half", "xt_grouped_mac", "irfft_tail",
@@ -235,20 +243,52 @@ def main() -> None:
 
     results = {}
 
-    def record(name, source, replaces, err, ms, plain_ms):
+    def bound(nbytes: float, flops: float):
+        """The least time the card could take, in ms, and what sets it:
+        every input read and every output written once at the memory's
+        rate, or the operations at the float32 rate."""
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * flops / F32_FLOPS_PER_S
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    def fft_flops(rows: int, h: int) -> float:
+        """One complex h-point FFT per row (5 h log2 h) and the packing of
+        its h + 1 real-transform bins (~12 each)."""
+        return rows * (5.0 * h * np.log2(h) + 12.0 * (h + 1))
+
+    def record(name, source, replaces, err, ms, plain_ms, nbytes, flops,
+               library_ms=None):
+        bound_ms, bound_by = bound(nbytes, flops)
         results[name] = {"name": name, "route": "cuda",
                          "source": source, "replaces": replaces,
-                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": library_ms}
+        lib = "" if library_ms is None else f"  library call {library_ms:.4f} ms"
         print(f"{name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  "
-              f"plain {plain_ms:.4f} ms  ({card})", flush=True)
+              f"plain {plain_ms:.4f} ms{lib}  bound {bound_ms:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP; {bound_by}; "
+              f"{100 * bound_ms / ms:.0f}% of it)  ({card})", flush=True)
 
     # ---- 3. each kernel against its plain version ----------------------------
-    # K1 fused head: (C, P, B, R); the first is the render's, R < P and
-    # R >= P both covered
-    k1_err, bad = None, []
+    # K1 fused head: (C, P, B, R); the first is the render's, the second
+    # the streaming super-step's; R < P and R >= P both covered, and R = 1,
+    # 7, 17 and 48 (with P = 1) across the edges of the kernel's tiles of
+    # 4 output blocks (8 at B = 32, 2 at B = 1024)
+    def k1_cost(Cc, P, B, R):
+        """Bytes x, y, H, both carries and both half spectra; operations
+        of 2 CR transforms and the MAC."""
+        F = B + 1
+        return (4.0 * (2 * Cc * R * B + 3 * 2 * P * Cc * F + 2 * 2 * Cc * F),
+                2 * fft_flops(Cc * R, B) + 8.0 * P * Cc * R * F)
+
+    k1_err, bad, k1_step = None, [], None
     for Cc, P, B, R in ((C, 16, BLOCK, T_RENDER // BLOCK), (C, 16, BLOCK, 8),
                         (1, 1, 32, 1), (5, 6, 32, 4), (8, 6, 32, 16),
-                        (5, 1, 512, 3), (8, 16, 512, 24), (3, 4, 1024, 5)):
+                        (5, 1, 512, 3), (8, 16, 512, 24), (3, 4, 1024, 5),
+                        (C, 16, BLOCK, 1), (5, 16, 512, 7), (5, 16, 512, 17),
+                        (5, 1, 512, 48), (3, 5, 64, 7), (3, 5, 128, 17),
+                        (2, 3, 256, 9), (2, 20, 1024, 11)):
         F = B + 1
         args = (randn(Cc, R * B), randn(2, P, Cc, F), randn(2, Cc, F),
                 randn(2, P, Cc, F))
@@ -264,12 +304,20 @@ def main() -> None:
         if k1_err is None:
             k1_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             bench_args = args
+        elif k1_step is None:
+            k1_step = args
     if bad:
         fail(f"below 110 dB: {bad}")
     record("fused_head", "bbcat_dsp_torch/csrc/fused_head.cu",
            tpu_kernel("fused_head_pallas"), k1_err,
            median_ms(lambda: k1.fused_head_cuda(*bench_args, BLOCK)),
-           median_ms(lambda: k1.fused_head_plain(*bench_args, BLOCK)))
+           median_ms(lambda: k1.fused_head_plain(*bench_args, BLOCK)),
+           *k1_cost(C, 16, BLOCK, T_RENDER // BLOCK))
+    step_bound, _ = bound(*k1_cost(C, 16, BLOCK, 8))
+    print(f"fused_head at R = 8 (the streaming super-step): kernel "
+          f"{median_ms(lambda: k1.fused_head_cuda(*k1_step, BLOCK)):.4f} ms, "
+          f"plain {median_ms(lambda: k1.fused_head_plain(*k1_step, BLOCK)):.4f}"
+          f" ms, bound {step_bound:.4f} ms ({card})", flush=True)
 
     # K3/K4 tail transforms: (row shape, n); the first is the group
     # render's, the second the per-super-step branch's
@@ -294,14 +342,24 @@ def main() -> None:
             bench_x, bench_planes = x, planes
     if bad:
         fail(f"below 110 dB: {bad}")
+    # rows of SB samples against rows of SB + 1 complex bins, either way;
+    # the library calls work on complex tensors, so they move the same bytes
+    rows = 6 * C
+    fft_cost = (4.0 * rows * SB + 8.0 * rows * (SB + 1), fft_flops(rows, SB))
+    bench_spec = torch.complex(bench_planes[0], bench_planes[1])
     record("rfft_half", "bbcat_dsp_torch/csrc/half_fft.cu",
            tpu_kernel("perm_rfft_half_pallas"), errs[0],
            median_ms(lambda: k34.rfft_half_cuda(bench_x, 2 * SB)),
-           median_ms(lambda: k34.rfft_half_plain(bench_x, 2 * SB)))
+           median_ms(lambda: k34.rfft_half_plain(bench_x, 2 * SB)),
+           *fft_cost,
+           library_ms=median_ms(lambda: torch.fft.rfft(bench_x, n=2 * SB)))
     record("irfft_tail", "bbcat_dsp_torch/csrc/half_fft.cu",
            tpu_kernel("perm_irfft_tail_pallas"), errs[1],
            median_ms(lambda: k34.irfft_tail_cuda(bench_planes, 2 * SB)),
-           median_ms(lambda: k34.irfft_tail_plain(bench_planes, 2 * SB)))
+           median_ms(lambda: k34.irfft_tail_plain(bench_planes, 2 * SB)),
+           *fft_cost,
+           library_ms=median_ms(lambda: torch.fft.irfft(
+               bench_spec, n=2 * SB)[..., SB:].contiguous()))
 
     # K2 xt-grouped tail MAC: (P, C, F, slot0)
     k2_err, bad = None, []
@@ -324,7 +382,11 @@ def main() -> None:
     record("xt_grouped_mac", "bbcat_dsp_torch/csrc/xt_grouped_mac.cu",
            tpu_kernel("xt_grouped_mac_pallas"), k2_err,
            median_ms(lambda: k2.xt_grouped_mac_cuda(*bench_args, 0)),
-           median_ms(lambda: k2.xt_grouped_mac_plain(*bench_args, 0)))
+           median_ms(lambda: k2.xt_grouped_mac_plain(*bench_args, 0)),
+           # queue, xt, H in and the spectra out; P x P MACs and 2P - 1
+           # window sums a bin
+           4 * 8.0 * 6 * C * (SB + 1),
+           (8.0 * 6 * 6 + 4.0 * (2 * 6 - 1)) * C * (SB + 1))
 
     # K5 gather_supers: (C, nsup, B2); B2 = 33 takes the scalar path
     first = True
@@ -339,7 +401,10 @@ def main() -> None:
     record("gather_supers", "bbcat_dsp_torch/csrc/marshal.cu",
            tpu_kernel("gather_supers_pallas"), 0.0,
            median_ms(lambda: k56.gather_supers_cuda(bench_x, 6)),
-           median_ms(lambda: k56.gather_supers_plain(bench_x, 6)))
+           median_ms(lambda: k56.gather_supers_plain(bench_x, 6)),
+           2 * 4.0 * C * 6 * SB, 0.0,
+           library_ms=median_ms(lambda: bench_x.reshape(C, 6, SB).permute(
+               1, 0, 2).contiguous()))
 
     # K6 delayed_add: (C, Pt, B2); B2 = 33 takes the scalar path
     first = True
@@ -354,18 +419,28 @@ def main() -> None:
     record("delayed_add", "bbcat_dsp_torch/csrc/marshal.cu",
            tpu_kernel("delayed_add_pallas"), 0.0,
            median_ms(lambda: k56.delayed_add_cuda(*bench_args)),
-           median_ms(lambda: k56.delayed_add_plain(*bench_args)))
+           median_ms(lambda: k56.delayed_add_plain(*bench_args)),
+           4.0 * C * SB * (6 + 2 + 6 + 6), 1.0 * C * 6 * SB)
 
     # K7 head MAC: (C, P, R, F, extra history slots); the first four are
     # the paths' shapes (small-block head, head crossfade, per-super-step
     # tail, BlockConvolver render), then C = 1, 5, 12 (K8's regime in the
-    # JAX package), P = 1, and the crossfade's deeper history
+    # JAX package), P = 1, the crossfade's deeper history, and R off the
+    # kernel's tiles of 8 and 16 outputs with C * F odd or not a multiple
+    # of 4 and P off the 8 partitions loaded ahead
+    def k7_cost(Cc, P, R, F):
+        """Bytes of the history's first P + R slots, H and the output;
+        one complex MAC a partition, output and bin."""
+        return 8.0 * Cc * F * (P + R + P + R), 8.0 * P * R * Cc * F
+
     k7_shapes = ((C, 16, 1, BLOCK + 1, 0), (C, 16, RATIO, BLOCK + 1, 0),
                  (C, 6, 1, SB + 1, 0),
                  (C, P_UNIFORM, T_RENDER // BLOCK, BLOCK + 1, 0),
                  (1, 16, 1, BLOCK + 1, 0), (5, 16, RATIO, BLOCK + 1, 0),
                  (12, 6, 1, SB + 1, 0), (C, 1, 3, BLOCK + 1, 0),
-                 (5, 3, 17, 33, 0), (C, 16, 1, BLOCK + 1, RATIO - 1))
+                 (5, 3, 17, 33, 0), (C, 16, 1, BLOCK + 1, RATIO - 1),
+                 (5, 7, 19, 33, 3), (3, 64, 33, 17, 0), (5, 20, 5, 33, 0),
+                 (7, 9, 9, 9, 0))
     k7_err, bad, k7_ms = None, [], {}
     for i, (Cc, P, R, F, extra) in enumerate(k7_shapes):
         args = (randn(2, P + R + extra, Cc, F), randn(2, P, Cc, F))
@@ -381,7 +456,8 @@ def main() -> None:
                 median_ms(lambda: k79.head_mac_cuda(*args, R)),
                 median_ms(lambda: k79.head_mac_plain(*args, R)))
             line += (f", kernel {k7_ms[(P, R, F)][0]:.4f} ms, plain "
-                     f"{k7_ms[(P, R, F)][1]:.4f} ms ({card})")
+                     f"{k7_ms[(P, R, F)][1]:.4f} ms, bound "
+                     f"{bound(*k7_cost(Cc, P, R, F))[0]:.4f} ms ({card})")
             k7_err = max(k7_err or 0.0, float((got - want).abs().max()))
         print(line, flush=True)
     if bad:
@@ -389,7 +465,8 @@ def main() -> None:
     # the JSON line carries the BlockConvolver render's shape, the largest
     ms, plain_ms = k7_ms[(P_UNIFORM, T_RENDER // BLOCK, BLOCK + 1)]
     record("head_mac", "bbcat_dsp_torch/csrc/spectral_mac.cu",
-           tpu_kernel("head_mac_tiled_pallas"), k7_err, ms, plain_ms)
+           tpu_kernel("head_mac_tiled_pallas"), k7_err, ms, plain_ms,
+           *k7_cost(C, P_UNIFORM, T_RENDER // BLOCK, BLOCK + 1))
 
     # K9 rotated MAC: (P, C, F, slot); the BlockConvolver step's shape at
     # two cursors, then small odd ones
@@ -413,13 +490,17 @@ def main() -> None:
     record("rotated_mac", "bbcat_dsp_torch/csrc/spectral_mac.cu",
            tpu_kernel("rotated_mac_pallas"), k9_err,
            median_ms(lambda: k79.rotated_mac_cuda(*bench_args, 37)),
-           median_ms(lambda: k79.rotated_mac_plain(*bench_args, 37)))
+           median_ms(lambda: k79.rotated_mac_plain(*bench_args, 37)),
+           8.0 * C * (BLOCK + 1) * (2 * P_UNIFORM + 1),
+           8.0 * P_UNIFORM * C * (BLOCK + 1))
 
     path_launches = []
 
     def check_path(label: str, counts: dict, must: set) -> None:
         """Fail unless the path launched every kernel in ``must`` and ran
-        no plain version."""
+        no plain version.  A count is one call of a kernel's wrapper: the
+        fused head's is two launches on the stream (its windows, then its
+        MAC and inverses)."""
         print(f"{label}: counts {counts}", flush=True)
         missing = sorted(k for k in must if counts["launches"][k] <= 0)
         if missing:
@@ -878,6 +959,43 @@ def main() -> None:
     block_latency("MatrixConvolver.process_block (64x2, 32768 taps)",
                   room.process_block)
 
+    # kernel launches of one call of each entry point (wrapper calls; the
+    # fused head's is two launches on the stream)
+    def launches_of(label, engine, call, warm: int = 0):
+        engine.reset()
+        for _ in range(warm):
+            call()
+        torch.cuda.synchronize()
+        ops_hook.reset_counts()
+        call()
+        torch.cuda.synchronize()
+        counts = ops_hook.counts()
+        if any(counts["plain"].values()):
+            fail(f"{label}: plain versions ran: {counts['plain']}")
+        per_call[label] = {k: v for k, v in counts["launches"].items() if v}
+
+    per_call = {}
+    xb, xsb, xm = xl[:, :BLOCK], xl[:, :SB], randn(CI, 128 * BLOCK)
+    launches_of("NonUniformConvolver.process, T = 24576", conv,
+                lambda: conv.process(xs[0]))
+    launches_of("NonUniformConvolver.process_block", stream,
+                lambda: stream.process_block(xsb))
+    launches_of("NonUniformConvolver.process_small_block", stream,
+                lambda: stream.process_small_block(xb))
+    launches_of("NonUniformConvolver.process_small_block, the super-block's "
+                "last (the tail fires)", stream,
+                lambda: stream.process_small_block(xb), warm=RATIO - 1)
+    launches_of("BlockConvolver.process, T = 24576", bconv,
+                lambda: bconv.process(xs[0]))
+    launches_of("BlockConvolver.process_block", bconv,
+                lambda: bconv.process_block(xb))
+    launches_of("MatrixConvolver.process_block (64x2)", mconv,
+                lambda: mconv.process_block(xb))
+    launches_of("MatrixConvolver.process, 128 blocks (64x2)", mconv,
+                lambda: mconv.process(xm))
+    for label, counts in per_call.items():
+        print(f"launches per call, {label}: {counts}", flush=True)
+
     # ---- 9. loudness and mixdown (config #4) ------------------------------------
     from bbcat_dsp_torch import LoudnessMeter, MixdownPipeline
     from bbcat_dsp_torch.filters import iir
@@ -1093,6 +1211,8 @@ def main() -> None:
             print(f"  {sum(durs) / n:9.1f} us {100 * sum(durs) / n / busy:5.1f}%"
                   f" {len(durs) / n:6.1f}x  {name[:90]}", flush=True)
 
+    where_time_goes("NonUniformConvolver.process, T = 24576 (mean of 8 "
+                    "renders)", lambda i: conv.process(xs[2 + i]), 8)
     xl = randn(CI, 40 * BLOCK)
     where_time_goes("BinauralRenderer.process_block (mean of 40 blocks)",
                     lambda i: rend.process_block(

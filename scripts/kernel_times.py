@@ -1,0 +1,194 @@
+#!/usr/bin/env python3
+"""Time the port's fused head (K1) and head MAC (K7) on one NVIDIA GPU.
+
+    python3 scripts/kernel_times.py                  # from the repo root
+    python3 scripts/kernel_times.py --define K1_TILE=8 --define K1_TILE=4
+
+Builds the CUDA kernels of ``bbcat_dsp_torch/csrc``, holds K1 and K7
+against their plain PyTorch versions at the paths' shapes and at small and
+ragged ones, and prints device-only median times (CUDA events behind a
+spin on the stream, 20 launches) of K1 at R = 48, 8 and 1 (C = 64, P = 16,
+B = 512), of K7 at its four path shapes, of K1's two launches apart
+(torch.profiler), and of K3, K4 and K5 beside the one PyTorch call that
+computes the same.  It runs on any tree that has the wrappers, so an older
+checkout gives the earlier kernels' times.
+
+Each ``--define NAME=VALUE`` (comma-separated for several at once) builds
+the library once more with ``-DNAME=VALUE`` and times it in turn, then the
+plain build again: a way to compare values of a constant that the source
+gives an ``#ifndef`` default for the length of an experiment.  Exits
+nonzero without a card or if a kernel disagrees with its plain version.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+C, P, B = 64, 16, 512
+K1_SHAPES = ((C, P, B, 48), (C, P, B, 8), (C, P, B, 1), (1, 1, 32, 1),
+             (5, 6, 32, 4), (8, 6, 32, 16), (5, 1, 512, 3), (8, 16, 512, 24),
+             (3, 4, 1024, 5), (3, 5, 64, 7), (3, 5, 128, 17), (2, 3, 256, 9),
+             (5, 16, 512, 7), (5, 16, 512, 17), (5, 1, 512, 48),
+             (2, 20, 1024, 11))
+# (C, P, R, F, extra history slots)
+K7_SHAPES = ((C, 16, 1, 513, 0), (C, 16, 8, 513, 0), (C, 6, 1, 4097, 0),
+             (C, 64, 48, 513, 0), (1, 16, 1, 513, 0), (5, 16, 8, 513, 0),
+             (12, 6, 1, 4097, 0), (C, 1, 3, 513, 0), (5, 3, 17, 33, 0),
+             (C, 16, 1, 513, 7), (5, 7, 19, 33, 3), (3, 64, 33, 17, 0),
+             (5, 20, 5, 33, 0))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--define", action="append", default=[],
+                    help="NAME=VALUE[,NAME=VALUE...]: one more build")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device")
+        return 1
+    from torch.profiler import ProfilerActivity, profile
+
+    from bbcat_dsp_torch.ops.kernels import _build
+    from bbcat_dsp_torch.ops.kernels import fused_head as k1
+    from bbcat_dsp_torch.ops.kernels import half_fft as k34
+    from bbcat_dsp_torch.ops.kernels import marshal as k56
+    from bbcat_dsp_torch.ops.kernels import spectral_mac as k79
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    dev = torch.device("cuda")
+
+    def snr(ref, t) -> float:
+        ref = ref.double()
+        noise = ((ref - t.double()) ** 2).sum().item()
+        return float("inf") if noise == 0 else float(
+            10 * np.log10((ref ** 2).sum().item() / noise))
+
+    def median_ms(fn, iters: int = 20) -> float:
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(iters):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(4_000_000)   # the host enqueues fn behind it
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    def launches_us(fn, n: int = 10) -> dict:
+        """Median device time of each kernel name ``fn`` launches."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())["traceEvents"]
+        by_name: dict[str, list] = {}
+        for ev in events:
+            if ev.get("cat") == "kernel":
+                by_name.setdefault(ev["name"][:60], []).append(ev["dur"])
+        return {k: round(statistics.median(v), 1) for k, v in by_name.items()}
+
+    def one_build(tag: str) -> bool:
+        _build.library()
+        lines = _build.BUILD_LOG.splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry" in line and any(
+                    k in line for k in ("fused_head", "windows_kernel",
+                                        "mac_inverse", "head_mac")):
+                used = " ".join(x.strip() for x in lines[i + 1:i + 4]
+                                if "Used" in x or "spill" in x)
+                print(f"  ptxas {line.strip()[-70:]} | {used}")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        ok = True
+        for Cc, Pp, Bb, R in K1_SHAPES:
+            F = Bb + 1
+            a = (randn(Cc, R * Bb), randn(2, Pp, Cc, F), randn(2, Cc, F),
+                 randn(2, Pp, Cc, F))
+            got = k1.fused_head_cuda(*a, Bb)
+            torch.cuda.synchronize()
+            s = [snr(w, g) for g, w in zip(got, k1.fused_head_plain(*a, Bb))]
+            ok &= min(s) >= 110.0
+            line = (f"{tag} K1 C={Cc} P={Pp} B={Bb} R={R}: "
+                    + " ".join(f"{v:.1f}" for v in s) + " dB")
+            if Cc == C:
+                ms = median_ms(lambda: k1.fused_head_cuda(*a, Bb))
+                line += (f"  {ms:.4f} ms  "
+                         f"{launches_us(lambda: k1.fused_head_cuda(*a, Bb))}")
+            print(line, flush=True)
+        for Cc, Pp, R, F, extra in K7_SHAPES:
+            a = (randn(2, Pp + R + extra, Cc, F), randn(2, Pp, Cc, F))
+            got = k79.head_mac_cuda(*a, R)
+            torch.cuda.synchronize()
+            s = snr(k79.head_mac_plain(*a, R), got)
+            ok &= s >= 120.0
+            line = (f"{tag} K7 C={Cc} P={Pp} R={R} F={F} extra={extra}: "
+                    f"{s:.1f} dB")
+            if Cc == C:
+                line += f"  {median_ms(lambda: k79.head_mac_cuda(*a, R)):.4f} ms"
+            print(line, flush=True)
+        return ok
+
+    base = list(_build.NVCC_FLAGS)
+    builds = [[]] + [[f"-D{d}" for d in spec.split(",")]
+                     for spec in args.define]
+    if args.define:
+        builds.append([])
+    ok = True
+    for flags in builds:
+        _build._LIB = None
+        _build.NVCC_FLAGS[:] = base + flags
+        print(f"=== build {flags or 'as committed'} ({card})", flush=True)
+        ok &= one_build(" ".join(flags) or "default")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    x = torch.randn((6, C, 4096), generator=gen, device=dev)
+    X = torch.randn((2, 6, C, 4097), generator=gen, device=dev)
+    Xc = torch.complex(X[0], X[1])
+    xs = torch.randn((C, 6 * 4096), generator=gen, device=dev)
+    print(f"K3 {median_ms(lambda: k34.rfft_half_cuda(x, 8192)):.4f} ms, "
+          f"torch.fft.rfft {median_ms(lambda: torch.fft.rfft(x, n=8192)):.4f}")
+    print(f"K4 {median_ms(lambda: k34.irfft_tail_cuda(X, 8192)):.4f} ms, "
+          f"torch.fft.irfft "
+          f"{median_ms(lambda: torch.fft.irfft(Xc, n=8192)):.4f}, with the "
+          "tail half copied "
+          f"{median_ms(lambda: torch.fft.irfft(Xc, n=8192)[..., 4096:].contiguous()):.4f}")
+    print(f"K5 {median_ms(lambda: k56.gather_supers_cuda(xs, 6)):.4f} ms, "
+          "permute().contiguous() "
+          f"{median_ms(lambda: xs.reshape(C, 6, 4096).permute(1, 0, 2).contiguous()):.4f}")
+    print("OK" if ok else "FAIL: a kernel disagrees with its plain version")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

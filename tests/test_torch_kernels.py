@@ -9,7 +9,10 @@ kernel run with ``interpret=True`` at a tiny shape.  The tail transforms'
 layout, which the port does not serve.  The CUDA kernels run
 only on the card (``chip_smoke.py`` holds each against these plain
 versions there); here their wrappers are checked to refuse what they do
-not take, before any build.
+not take, before any build.  The fused head (K1) and the head MAC (K7)
+split their work over the card in ways the plain versions do not: models
+of those schedules in plain PyTorch, each unit reading only what its CTA
+reads, are held against the plain versions and the contracts here.
 """
 
 import jax
@@ -87,6 +90,156 @@ def test_fused_head_plain_matches_pallas_interpret(rng):
     got = k1.fused_head_plain(*map(torch.from_numpy, ins), B)
     for w, g in zip(want, got):
         assert snr_db(np.asarray(w), g.numpy()) >= 90.0
+
+
+# ---- the schedules of the CUDA K1 and K7, modelled in PyTorch ------------------
+
+def _window_mac_model(RT, U, P, x, h):
+    """``csrc/window_mac.cuh``: ``acc[k] = sum_p x(p - k) h(p)`` for a tile
+    of ``RT`` outputs, the partitions in chunks of ``U`` whose history
+    entries ``e`` and filter bins ``g`` are fetched ahead, the window ``w``
+    moved by ``U`` a chunk; p ascends for every output."""
+    zero = torch.zeros_like(h(0))
+    acc = [zero] * RT
+    w = [x(-k) for k in range(RT)]
+    for p0 in range(0, P, U):
+        g = [h(p0 + u) if p0 + u < P else zero for u in range(U)]
+        e = [x(p0 + 1 + j) if p0 + 1 + j < P else zero for j in range(U)]
+        for u in range(min(U, P - p0)):
+            for k in range(RT):
+                acc[k] = acc[k] + (w[k - u] if k >= u else e[u - k - 1]) * g[u]
+        w = [w[k - U] if k >= U else e[U - k - 1] for k in range(RT)]
+    return acc
+
+
+def _k1_tile(B):
+    """Output blocks a CTA of ``mac_inverse_kernel`` (csrc/fused_head.cu)."""
+    return 2 if B > 512 else (8 if B < 64 else 4)
+
+
+def _fused_head_model(x, xcarry, prev, H, B):
+    """The two launches of ``csrc/fused_head.cu``.  First every window on
+    its own: block 0 from ``[x_0, 0]`` and ``prev``, block j > 0 as one
+    transform of ``[x_{j-1}, x_j]``, one more of ``[x_{R-1}, 0]`` for the
+    carry, the carried windows copied in front and those the new carry
+    keeps moved up.  Then per (channel, tile): the MAC over the windows
+    ``i0 + 1 .. P + i0 + tile - 1`` alone and the inverses' last B
+    samples."""
+    C, T = x.shape
+    R, P, F = T // B, H.shape[1], B + 1
+    n = 2 * B
+    sign = torch.where(torch.arange(F) % 2 == 1, -1.0, 1.0)
+    Hc = torch.complex(H[0], H[1])
+    win = torch.full((C, P + R, F), float("nan"), dtype=torch.complex64)
+    carry = torch.full((P, C, F), float("nan"), dtype=torch.complex64)
+    xc = torch.complex(xcarry[0], xcarry[1])
+    for p in range(P):                                   # the copying CTAs
+        win[:, p] = xc[p]
+        if p >= R:
+            carry[p - R] = xc[p]
+    prev_out = None
+    for c in range(C):
+        for j in range(R + (1 if R > 1 else 0)):         # one transform each
+            if j == 0 or j == R:
+                blk = R - 1 if j == R else 0
+                w = torch.fft.rfft(x[c, blk * B:(blk + 1) * B], n=n)
+                w.imag[[0, -1]] = 0.0
+            else:
+                w = torch.fft.rfft(x[c, (j - 1) * B:(j + 1) * B])
+            if j == R or R == 1:
+                if prev_out is None:
+                    prev_out = torch.empty((C, F), dtype=torch.complex64)
+                prev_out[c] = w
+                if j == R:
+                    continue
+            if j == 0:
+                w = torch.complex(prev[0, c], prev[1, c]) + sign * w
+            win[c, P + j] = w
+            if P + j - R >= 0:
+                carry[P + j - R, c] = w
+    assert not torch.isnan(torch.view_as_real(win)).any()
+    y = torch.full((C, T), float("nan"))
+    RT = _k1_tile(B)
+    for c in range(C):
+        for i0 in range(0, R, RT):
+            lo = i0 + 1                                  # oldest window read
+            seen = win[c, lo:min(P + i0 + RT, P + R)]    # all this CTA reads
+
+            def hist(d, i0=i0, lo=lo, seen=seen):
+                m = P + i0 - d
+                return seen[m - lo] if m <= P + R - 1 else torch.zeros(
+                    F, dtype=torch.complex64)
+
+            acc = _window_mac_model(RT, 4, P, hist, lambda p: Hc[p, c])
+            for r in range(min(RT, R - i0)):
+                a = acc[r].clone()
+                a.imag[[0, -1]] = 0.0
+                y[c, (i0 + r) * B:(i0 + r + 1) * B] = torch.fft.irfft(
+                    a, n=n)[B:]
+    planes = lambda z: torch.stack([z.real, z.imag])
+    return y, planes(carry), planes(prev_out)
+
+
+def _head_mac_model(xext, H, R):
+    """``head_mac_kernel`` of ``csrc/spectral_mac.cu``: a tile of 1, 8 or 16
+    outputs a thread, 4 (single block) or 8 partitions fetched ahead; only
+    the history's first ``P + R`` slots are read."""
+    P = H.shape[1]
+    RT = 1 if R == 1 else (8 if R <= 8 else 16)
+    X = torch.complex(xext[0], xext[1])[:P + R]
+    Hc = torch.complex(H[0], H[1])
+    out = torch.full((R, *H.shape[2:]), float("nan"), dtype=torch.complex64)
+    for i0 in range(0, R, RT):
+        def hist(d, i0=i0):
+            s = P + i0 - d
+            assert s >= 0
+            return X[s] if s <= P + R - 1 else torch.zeros_like(X[0])
+
+        acc = _window_mac_model(RT, 4 if RT == 1 else 8, P, hist,
+                                lambda p: Hc[p])
+        for k in range(min(RT, R - i0)):
+            out[i0 + k] = acc[k]
+    return torch.stack([out.real, out.imag])
+
+
+@pytest.mark.parametrize("C,P,B,R", [
+    (3, 4, 64, 7),     # R not a multiple of the tile of 4
+    (2, 4, 64, 1),     # one block: the half spectrum is the window's own
+    (2, 8, 32, 3),     # R < P: the carry mixes old and new windows
+    (2, 4, 64, 4),     # R = P
+    (2, 3, 64, 9),     # R > 2P
+    (2, 1, 64, 6),     # one partition
+    (5, 6, 32, 10),    # odd C, the tile of 8 at B = 32
+    (1, 5, 128, 5),    # B = 128: radix 8, 8, 2
+])
+def test_fused_head_schedule_matches_plain_and_contract(rng, C, P, B, R):
+    ins = _head_inputs(rng, C, P, B, R)
+    tins = list(map(torch.from_numpy, ins))
+    got = _fused_head_model(*tins, B)
+    plain = k1.fused_head_plain(*tins, B)
+    want = _xla_fused_head(*map(jnp.asarray, ins), B)
+    for g, p_, w in zip(got, plain, want):
+        assert g.shape == p_.shape
+        assert snr_db(p_.numpy(), g.numpy()) >= 110.0
+        assert snr_db(np.asarray(w), g.numpy()) >= 110.0
+
+
+@pytest.mark.parametrize("P,R,C,F,depth", [
+    (16, 1, 3, 17, 0),    # the single block: tile 1, 4 partitions ahead
+    (16, 8, 2, 9, 0),     # the super-step: one full tile of 8
+    (6, 5, 5, 9, 0),      # R and P off the tile and the chunk, odd C
+    (20, 19, 3, 7, 0),    # tiles of 16, the last one ragged
+    (64, 48, 1, 5, 0),    # the uniform render's P and R
+    (1, 20, 2, 5, 0),     # one partition
+    (9, 33, 5, 3, 4),     # a deeper history, C * F odd
+    (3, 1, 1, 9, 7),      # the crossfade's old-filter block
+])
+def test_head_mac_schedule_matches_plain_and_contract(rng, P, R, C, F, depth):
+    V, H, plain = _head_mac_case(rng, P, R, C, F, depth)
+    got = _head_mac_model(torch.from_numpy(V), torch.from_numpy(H), R).numpy()
+    assert snr_db(plain, got) >= 120.0
+    want = adjoint.xla_head_mac(jnp.asarray(V[:, :P + R]), jnp.asarray(H), R)
+    assert snr_db(np.asarray(want), got) >= 120.0
 
 
 # ---- K2 xt-grouped tail MAC ---------------------------------------------------
