@@ -56,6 +56,7 @@ using bbcat::CtaSync;
 using bbcat::FirstThreadsSync;
 using bbcat::fft_regs;
 using bbcat::packed_bin;
+using bbcat::PeriodTable;
 using bbcat::real_bin;
 using bbcat::window_mac;
 
@@ -138,7 +139,7 @@ windows_kernel(const float* __restrict__ x,       // [C, R*B]
   }
   load_table(tws, tw, B, kWindowThreads);  // behind the samples' loads; first read after
                            // the transform's first exchange
-  fft_regs<B>(v, buf, tws, t, CtaSync());
+  fft_regs<B>(v, buf, PeriodTable<2 * B>{tws}, t, CtaSync());
   __syncthreads();
 #pragma unroll
   for (int m = 0; m < 8; ++m) buf[t + m * T] = v[m];
@@ -248,7 +249,7 @@ mac_inverse_kernel(const float2* __restrict__ win,  // [C, P+R, F]
     const float2 z = packed_bin(buf[k], buf[B - k], k, tws[k]);
     v[m] = make_float2(z.y, z.x);
   }
-  fft_regs<B>(v, buf, tws, t, FirstThreadsSync<NT>());
+  fft_regs<B>(v, buf, PeriodTable<2 * B>{tws}, t, FirstThreadsSync<NT>());
   if (i0 + r >= R) return;
   // z[e] = (y[2e], y[2e+1]) B over the n-window; overlap-save keeps its
   // last B samples, e = B/2 .. B-1: the registers m = 4 .. 7

@@ -10,17 +10,44 @@
 //   bbcat_irfft_tail  y  = last h samples of irFFT_n(X)  DC/Nyquist imag dropped
 // over re/im planes [2, rows, F].
 //
-// Bound: each row is read and written once, so the memory traffic is
-// small (at the render's 384 rows of 4096 samples, 6.3 MB in and 12.6 MB
-// out); the cost is the transform's log2(h) stages, each a pass over the
-// row in shared memory behind a barrier.  Design: one CTA per row, the
-// real n-point transform run as one complex h-point radix-2 FFT of the
-// packed sample pairs (fft_common.cuh), the upper half of the input zero:
-// decimation in time forward, in frequency inverse, so that neither the
-// bit-reversed scatter nor the gather meets a shared-memory bank conflict.
-// 16h bytes of shared memory per CTA (64 KB at h = 4096) let three CTAs
-// share an SM, so all 384 rows of the render are resident at once.  The
-// twiddles come from a host table computed in double precision.
+// Bound: bytes.  Each row is read and written once (at the render's 384
+// rows of 4096 samples, 6.3 MB one way and 12.6 MB the other) and the
+// arithmetic is a fiftieth of what the card does in that time, so what a
+// design can lose is time between the two: passes over the row in shared
+// memory, barriers, and SMs that wait for a straggling row.
+//
+// Design.  The real n-point transform runs as one complex h-point FFT of
+// the packed sample pairs, held in registers (fft_common.cuh): h/NP
+// threads a row, NP = 16 points a thread from h = 1024 on and 8 below,
+// Stockham stages of radix NP (a smaller last one), so h = 4096 = 16^3
+// meets shared memory in two exchanges, as h = 512 = 8^3 does, where
+// radix-2 passes took 12 barriers; the exchange buffer, h complex values a
+// row, is swizzled so that no stage's writes or reads meet a bank
+// conflict.  What is known beforehand is not computed: the forward
+// transform's upper half of the window is zero, so each thread loads half
+// its points and the first stage is a butterfly of its lower inputs; of
+// the inverse only the tail half is wanted, the upper half of each
+// thread's registers after the last stage, and the rest of that stage
+// falls away.  Rows go to CTAs by size: one row a CTA from h = 4096 on,
+// and below as many rows as fill a warp, then up to 256 threads once there
+// are rows enough to give every SM two CTAs, so that 64 rows of h = 512
+// still spread over 64 SMs and 3072 fill the card.  At h = 4096 a CTA is
+// 256 threads of at most 80 registers and 32 KB, three to an SM: the
+// render's 384 rows are on the card at once.  Twiddles come from a host
+// table computed in double precision, one table a stage laid out as the
+// stage reads it, through the read-only cache.  Rows of samples are
+// 8-byte aligned runs and move as float2; the planes' rows are h + 1
+// floats, so bins move as scalars, a warp on consecutive addresses.  The
+// forward transform's unpacking needs Z[k] and Z[h-k] together and gives
+// X[k] and X[h-k] at once, for half an exchange more; the inverse packs
+// X[k] and X[h-k] straight from device memory (the second read of a bin
+// hits the L1 cache).
+//
+// No tensor cores: the contract is >= 110 dB against the plain float32
+// version (these kernels measure 131 to 140 dB on an H100, float32
+// throughout), a TF32 product keeps 10 mantissa bits, so a DFT by matrix
+// products (the TPU kernel's route, there with a three-way bf16 split)
+// would need the same split here, and arithmetic is not what binds.
 
 #include <cuda_runtime.h>
 
@@ -28,119 +55,198 @@
 
 namespace {
 
-using bbcat::bitrev;
-using bbcat::fft_dif;
-using bbcat::fft_dit;
+using bbcat::CtaSync;
+using bbcat::fft_regs;
 using bbcat::packed_bin;
-using bbcat::real_bin;
-using bbcat::spread;
+using bbcat::real_bin_pair;
+using bbcat::stage_tables_size;
+using bbcat::StageTables;
+using bbcat::Swizzled;
 
-constexpr int kThreads = 512;
-constexpr int kMinHalf = 32;
-constexpr int kMaxHalf = 8192;  // 16h bytes of shared memory <= 227 KB
+constexpr int kPackThreads = 256;  // small rows share a CTA of this size
+constexpr int kSpreadCtas = 264;   // two CTAs an SM before rows are packed
 
-size_t smem_bytes(int h) { return (2 * static_cast<size_t>(h) - 1) * sizeof(float2); }
+// Points a thread holds (ops/kernels/half_fft.py lays the twiddles out for
+// the same), threads a row, and a CTA's size.
+template <int H>
+constexpr int kPoints = H >= 1024 ? 16 : 8;
+template <int H>
+constexpr int kRowThreads = H / kPoints<H>;
+template <int H>
+constexpr int kMaxThreads =
+    kRowThreads<H> > kPackThreads ? kRowThreads<H> : kPackThreads;
+// CTAs an SM that the register count must leave room for.  With 16 points
+// a thread the compiler takes up to 190 registers if it may; 80 hold the
+// transform without a spill and let three CTAs of 256 threads share an SM,
+// so that the render's 384 rows of h = 4096 are on the card at once.
+template <int H>
+constexpr int kMinCtas = (kPoints<H> == 16 && kMaxThreads<H> == 256) ? 3 : 1;
 
-// The stage twiddles, tw[h+1 ..], into shared memory.
-__device__ __forceinline__ void load_stage_twiddles(float2* tws,
-                                                    const float2* tw, int h) {
-  for (int t = threadIdx.x; t < h - 1; t += blockDim.x) tws[t] = tw[h + 1 + t];
+// Rows a CTA: as many as fill a warp, then doubled up to kPackThreads
+// while the launch still has kSpreadCtas CTAs.
+int rows_per_cta(int M, int T) {
+  const int cap = kPackThreads / T > 1 ? kPackThreads / T : 1;
+  int r = 32 / T > 1 ? 32 / T : 1;
+  while (2 * r <= cap && 2 * r <= M / kSpreadCtas) r *= 2;
+  return r;
 }
 
-// tw: [2h] = exp(-2 pi i k / 2h) for k = 0 .. h, then the h-1 stage
-// twiddles in fft_common.cuh's layout
-__global__ void __launch_bounds__(kThreads)
-rfft_half_kernel(const float* __restrict__ x,    // [M, h]
-                 const float2* __restrict__ tw,  // [2h]
-                 float* __restrict__ out,        // [2, M, h+1]
-                 int M, int h) {
+// tw: the stages' twiddle tables (fft_common.cuh: StageTables), then
+// exp(-2 pi i k / 2H) for k = 0 .. H, the real transform's
+template <int H>
+__global__ void __launch_bounds__(kMaxThreads<H>, kMinCtas<H>)
+rfft_half_kernel(const float* __restrict__ x,    // [M, H]
+                 const float2* __restrict__ tw,  // stage tables, [H + 1]
+                 float* __restrict__ out,        // [2, M, H+1]
+                 int M) {
+  constexpr int NP = kPoints<H>;
+  constexpr int T = kRowThreads<H>;
+  constexpr int F = H + 1;
   extern __shared__ float2 smem[];
-  float2* buf = smem;     // [h]   complex FFT work array
-  float2* tws = buf + h;  // [h-1] stage twiddles
-  const int logh = 31 - __clz(h);
-  const int F = h + 1;
-  const size_t row = blockIdx.x;
-  load_stage_twiddles(tws, tw, h);
-  // z[j] = x[2j] + i x[2j+1]; the window's upper half is zero
-  const float2* xr = reinterpret_cast<const float2*>(x + row * h);
-  for (int t = threadIdx.x; t < h; t += blockDim.x) {
-    const int j = spread(t, logh);
-    buf[bitrev(j, logh)] = (j < h / 2) ? xr[j] : make_float2(0.0f, 0.0f);
-  }
+  const int slot = threadIdx.x / T;
+  const int t = threadIdx.x % T;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (blockDim.x / T) + slot;
+  const bool live = row < M;  // a CTA's last slots may have no row
+  float2* buf = smem + slot * H;
+
+  // z[j] = x[2j] + i x[2j+1], j = t + m T; the window's upper half
+  // (m >= NP/2) is zero and stays unset
+  float2 v[NP];
+  const float2* xr = reinterpret_cast<const float2*>(x + row * H);
+#pragma unroll
+  for (int m = 0; m < NP / 2; ++m)
+    v[m] = live ? xr[t + m * T] : make_float2(0.0f, 0.0f);
+  fft_regs<H, NP, true>(v, buf, StageTables<H, NP>{tw}, t, CtaSync(),
+                         Swizzled<NP>());
+
+  // Bins k < H/2 and H - k come from Z[k], in this thread's lower
+  // registers, and Z[H-k], in another thread's upper ones: half an
+  // exchange more, in natural order (a warp writes one run and reads
+  // another backwards)
   __syncthreads();
-  fft_dit(buf, tws, h, logh, false);
+#pragma unroll
+  for (int m = NP / 2; m < NP; ++m) buf[t + m * T] = v[m];
+  __syncthreads();
+  if (!live) return;
   float* re = out + row * F;
   float* im = re + static_cast<size_t>(M) * F;
-  for (int k = threadIdx.x; k < F; k += blockDim.x) {
-    const float2 v = real_bin(buf, k, h, tw[k]);
-    re[k] = v.x;
-    im[k] = v.y;
+  const float2* twh = tw + stage_tables_size<H, NP, H>();
+#pragma unroll
+  for (int m = 0; m < NP / 2; ++m) {
+    const int k = t + m * T;
+    float2 Xk, Xhk;  // k = 0: DC and Nyquist, from Z[0] alone
+    real_bin_pair(v[m], k == 0 ? v[0] : buf[H - k], k, __ldg(twh + k), Xk,
+                  Xhk);
+    re[k] = Xk.x;
+    im[k] = Xk.y;
+    re[H - k] = Xhk.x;
+    im[H - k] = Xhk.y;
+  }
+  if (t == 0) {  // the middle bin is its own partner: X = conj(Z)
+    re[H / 2] = v[NP / 2].x;
+    im[H / 2] = -v[NP / 2].y;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-irfft_tail_kernel(const float* __restrict__ X,    // [2, M, h+1]
-                  const float2* __restrict__ tw,  // [2h], as for rfft_half
-                  float* __restrict__ y,          // [M, h]
-                  int M, int h) {
+template <int H>
+__global__ void __launch_bounds__(kMaxThreads<H>, kMinCtas<H>)
+irfft_tail_kernel(const float* __restrict__ X,    // [2, M, H+1]
+                  const float2* __restrict__ tw,  // as for rfft_half
+                  float* __restrict__ y,          // [M, H]
+                  int M) {
+  constexpr int NP = kPoints<H>;
+  constexpr int T = kRowThreads<H>;
+  constexpr int F = H + 1;
   extern __shared__ float2 smem[];
-  float2* buf = smem;
-  float2* tws = buf + h;
-  const int logh = 31 - __clz(h);
-  const int F = h + 1;
-  const size_t row = blockIdx.x;
-  load_stage_twiddles(tws, tw, h);
+  const int slot = threadIdx.x / T;
+  const int t = threadIdx.x % T;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (blockDim.x / T) + slot;
+  const bool live = row < M;
+  float2* buf = smem + slot * H;
+
+  // the packed spectrum with re and im swapped: the forward transform of
+  // it is the inverse's output, swapped again
+  float2 v[NP];
   const float* re = X + row * F;
   const float* im = re + static_cast<size_t>(M) * F;
-  for (int k = threadIdx.x; k < h; k += blockDim.x)
-    buf[k] = packed_bin(make_float2(re[k], im[k]),
-                        make_float2(re[h - k], im[h - k]), k, tw[k]);
-  __syncthreads();
-  fft_dif(buf, tws, h, logh, true);
-  // z[j] = (y[2j], y[2j+1]) * h at buf[bitrev(j)]; the tail half is
-  // j = h/2 .. h-1
-  float2* yr = reinterpret_cast<float2*>(y + row * h);
-  const float scale = 1.0f / h;
-  for (int t = threadIdx.x; t < h; t += blockDim.x) {
-    const int j = spread(t, logh);
-    if (j < h / 2) continue;
-    const float2 z = buf[bitrev(j, logh)];
-    yr[j - h / 2] = make_float2(z.x * scale, z.y * scale);
+  const float2* twh = tw + stage_tables_size<H, NP, H>();
+#pragma unroll
+  for (int m = 0; m < NP; ++m) {
+    const int k = t + m * T;
+    if (live) {
+      const float2 z = packed_bin(make_float2(re[k], im[k]),
+                                  make_float2(re[H - k], im[H - k]), k,
+                                  __ldg(twh + k));
+      v[m] = make_float2(z.y, z.x);
+    } else {
+      v[m] = make_float2(0.0f, 0.0f);
+    }
   }
+  fft_regs<H, NP>(v, buf, StageTables<H, NP>{tw}, t, CtaSync(),
+                   Swizzled<NP>());
+  if (!live) return;
+  // z[j] = (y[2j], y[2j+1]) H over the n-window, j = t + m T; overlap-save
+  // keeps j >= H/2, the registers m >= NP/2, and nothing reads the others
+  float2* yr = reinterpret_cast<float2*>(y + row * H);
+  const float scale = 1.0f / H;
+#pragma unroll
+  for (int m = NP / 2; m < NP; ++m)
+    yr[t + (m - NP / 2) * T] = make_float2(v[m].y * scale, v[m].x * scale);
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, const float* in, const void* tw, float* out, int M,
-           int h, cudaStream_t stream) {
-  if (h < kMinHalf || h > kMaxHalf || (h & (h - 1)) || M < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(h);
+template <int H, typename Kernel>
+int launch(Kernel kernel, const float* in, const float2* tw, float* out, int M,
+           cudaStream_t stream) {
+  constexpr int T = kRowThreads<H>;
+  const int rpc = rows_per_cta(M, T);
+  const size_t smem = static_cast<size_t>(rpc) * H * sizeof(float2);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<M, kThreads, smem, stream>>>(
-      in, static_cast<const float2*>(tw), out, M, h);
+  kernel<<<(M + rpc - 1) / rpc, rpc * T, smem, stream>>>(in, tw, out, M);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The kernel of ``name`` for half size h; every power of two the wrappers
+// serve.
+#define BBCAT_HALF_DISPATCH(name, h, ...)                       \
+  switch (h) {                                                  \
+    case 32: return launch<32>(name<32>, __VA_ARGS__);          \
+    case 64: return launch<64>(name<64>, __VA_ARGS__);          \
+    case 128: return launch<128>(name<128>, __VA_ARGS__);       \
+    case 256: return launch<256>(name<256>, __VA_ARGS__);       \
+    case 512: return launch<512>(name<512>, __VA_ARGS__);       \
+    case 1024: return launch<1024>(name<1024>, __VA_ARGS__);    \
+    case 2048: return launch<2048>(name<2048>, __VA_ARGS__);    \
+    case 4096: return launch<4096>(name<4096>, __VA_ARGS__);    \
+    case 8192: return launch<8192>(name<8192>, __VA_ARGS__);    \
+    default: return static_cast<int>(cudaErrorInvalidValue);    \
+  }
 
 }  // namespace
 
 extern "C" {
 
 // x [M, h] -> out [2, M, h+1]; h a power of two in [32, 8192], tw the
-// [2h] complex table of rfft_half_kernel.
+// complex table of rfft_half_kernel.
 int bbcat_rfft_half(const float* x, const void* tw, float* out, int M, int h,
                     cudaStream_t stream) {
-  return launch(rfft_half_kernel, x, tw, out, M, h, stream);
+  if (M < 1) return static_cast<int>(cudaErrorInvalidValue);
+  BBCAT_HALF_DISPATCH(rfft_half_kernel, h, x, static_cast<const float2*>(tw),
+                      out, M, stream)
 }
 
 // X [2, M, h+1] -> y [M, h]; h and tw as for bbcat_rfft_half.
 int bbcat_irfft_tail(const float* X, const void* tw, float* y, int M, int h,
                      cudaStream_t stream) {
-  return launch(irfft_tail_kernel, X, tw, y, M, h, stream);
+  if (M < 1) return static_cast<int>(cudaErrorInvalidValue);
+  BBCAT_HALF_DISPATCH(irfft_tail_kernel, h, X, static_cast<const float2*>(tw),
+                      y, M, stream)
 }
 
 }  // extern "C"

@@ -22,27 +22,48 @@ from . import _build
 __all__ = ["rfft_half_plain", "rfft_half_cuda", "irfft_tail_plain",
            "irfft_tail_cuda", "HALF_MIN", "HALF_MAX"]
 
-# the half-window sizes h = n/2 the kernels serve (powers of two); the
-# upper bound is what fits a CTA's shared memory (csrc/half_fft.cu)
+# the half-window sizes h = n/2 the kernels serve (powers of two): those
+# csrc/half_fft.cu instantiates
 HALF_MIN, HALF_MAX = 32, 8192
 
 _TWIDDLES: dict[tuple[int, torch.device], torch.Tensor] = {}
 
 
+def _points(h: int) -> int:
+    """Points of a transform of half size ``h`` that one thread holds:
+    ``kPoints`` of ``csrc/half_fft.cu``."""
+    return 16 if h >= 1024 else 8
+
+
+def _stages(h: int):
+    """``(ns, radix)`` of each FFT stage: radix ``_points(h)`` while that
+    many points remain to be combined, the rest in the last stage."""
+    ns = 1
+    while ns < h:
+        r = min(_points(h), h // ns)
+        yield ns, r
+        ns *= r
+
+
+def _twiddle_table(n: int) -> np.ndarray:
+    """The kernels' ``[..., 2]`` float32 twiddle table for half size
+    ``h = n/2``, computed in float64: for each stage after the first a
+    table ``exp(-2 pi i q k / (ns r))`` at ``(q - 1) ns + k``, ``q = 1 ..
+    r - 1``, ``k < ns``, one behind the other (``StageTables`` of
+    ``csrc/fft_common.cuh``), then ``exp(-2 pi i k / n)`` for ``k = 0 ..
+    h``, the real transform's."""
+    h = n // 2
+    turns = [np.outer(np.arange(1, r), np.arange(ns)).ravel() / (ns * r)
+             for ns, r in _stages(h) if ns > 1]
+    ang = -2.0 * np.pi * np.concatenate(turns + [np.arange(h + 1) / n])
+    return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+
+
 def _twiddles(n: int, device: torch.device) -> torch.Tensor:
-    """The kernels' ``[n, 2]`` float32 twiddle table on ``device``,
-    computed in float64 once per size and card: ``exp(-2 pi i k / n)``
-    for ``k = 0 .. n/2``, then the ``n/2 - 1`` FFT stage twiddles
-    ``exp(-2 pi i j / 2half)``, ``j < half``, for ``half = 1, 2, 4, ..``
-    (the layout of ``csrc/fft_common.cuh``)."""
+    """:func:`_twiddle_table` on ``device``, made once per size and card."""
     key = (n, device)
     if key not in _TWIDDLES:
-        halves = 1 << np.arange(int(math.log2(n // 2)))
-        stage = np.concatenate([np.arange(h) / h for h in halves])
-        ang = -np.pi * np.concatenate([2.0 * np.arange(n // 2 + 1) / n,
-                                       stage])
-        tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
-        _TWIDDLES[key] = torch.from_numpy(tw).to(device)
+        _TWIDDLES[key] = torch.from_numpy(_twiddle_table(n)).to(device)
     return _TWIDDLES[key]
 
 

@@ -11,8 +11,10 @@ Phases, each of which exits nonzero on failure:
    one compiler per source, all at once;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes its paths give it and at small and odd ones (for K1 and K7 also
-   across their output tiles' edges), with times (CUDA events, median of
-   20 launches) at the main paths' shapes, each beside its bound: the
+   across their output tiles' edges; K3 and K4 at every size they serve,
+   32 to 8192, and at row counts that leave a CTA partly empty), with
+   times (CUDA events, median of 20 launches) at the main paths' shapes
+   (four each for K3, K4 and K7), each beside its bound: the
    larger of the bytes the function must move over 3.35 TB/s and its
    operations over 67 TFLOP/s (float32), and for K3, K4 and K5 beside the
    one PyTorch call that computes the same (``torch.fft.rfft``, ``irfft``
@@ -319,13 +321,30 @@ def main() -> None:
           f"plain {median_ms(lambda: k1.fused_head_plain(*k1_step, BLOCK)):.4f}"
           f" ms, bound {step_bound:.4f} ms ({card})", flush=True)
 
-    # K3/K4 tail transforms: (row shape, n); the first is the group
-    # render's, the second the per-super-step branch's
-    errs, bad = None, []
-    for lead, n in (((6, C), 2 * SB), ((C,), 2 * SB), ((1,), 64),
-                    ((5, 3), 256), ((2,), 16384), ((7,), 2 * BLOCK),
-                    ((128, C), 2 * BLOCK), ((C,), 2 * BLOCK),
-                    ((128, 2), 2 * BLOCK), ((2,), 2 * BLOCK)):
+    # K3/K4 tail transforms: (row shape, n).  The first four are the paths'
+    # shapes, timed: the group render's, the per-super-step branch's, a
+    # streamed block's and the BlockConvolver render's.  Then the matrix
+    # paths' shapes and small ones; row counts that leave the last CTA of
+    # a launch that packs 2, 4 or 8 rows a CTA partly empty; and every size
+    # the kernels serve at 1, 5 and 67 rows, large and small sizes in turn
+    def fft_cost(rows, h):
+        """Rows of h samples against rows of h + 1 complex bins, either
+        way; the library calls work on complex tensors, so they move the
+        same bytes."""
+        return 4.0 * rows * h + 8.0 * rows * (h + 1), fft_flops(rows, h)
+
+    k34_shapes = (((6, C), 2 * SB), ((C,), 2 * SB), ((C,), 2 * BLOCK),
+                  ((T_RENDER // BLOCK, C), 2 * BLOCK),
+                  ((1,), 64), ((5, 3), 256), ((2,), 16384), ((7,), 2 * BLOCK),
+                  ((128, C), 2 * BLOCK), ((128, 2), 2 * BLOCK),
+                  ((2,), 2 * BLOCK),
+                  ((530,), 2 * BLOCK), ((1061,), 512), ((13,), 64),
+                  ((7,), 128), ((1059,), 128), ((3,), 256),
+                  *(((r,), 2 * h) for h in (8192, 32, 4096, 64, 2048, 128,
+                                            1024, 256, 512)
+                    for r in (1, 5, 67)))
+    k34_ms, bad = {}, []
+    for i, (lead, n) in enumerate(k34_shapes):
         h = n // 2
         x, planes = randn(*lead, h), randn(2, *lead, h + 1)
         got = (k34.rfft_half_cuda(x, n), k34.irfft_tail_cuda(planes, n))
@@ -337,29 +356,38 @@ def main() -> None:
               + " ".join(f"{s:.1f}" for s in snrs) + " dB", flush=True)
         if not min(snrs) >= 110.0:
             bad.append(f"tail transforms rows={lead} n={n}")
-        if errs is None:
-            errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
-            bench_x, bench_planes = x, planes
+        if i < 4:   # the main paths' shapes, timed
+            spec = torch.complex(planes[0], planes[1])
+            rows = int(np.prod(lead))
+            k34_ms[i] = {
+                "cost": fft_cost(rows, h),
+                "err": [float((g - w).abs().max()) for g, w in zip(got, want)],
+                "rfft_half": (
+                    median_ms(lambda: k34.rfft_half_cuda(x, n)),
+                    median_ms(lambda: k34.rfft_half_plain(x, n)),
+                    median_ms(lambda: torch.fft.rfft(x, n=n))),
+                "irfft_tail": (
+                    median_ms(lambda: k34.irfft_tail_cuda(planes, n)),
+                    median_ms(lambda: k34.irfft_tail_plain(planes, n)),
+                    median_ms(lambda: torch.fft.irfft(
+                        spec, n=n)[..., h:].contiguous()))}
+            b_ms = bound(*k34_ms[i]["cost"])[0]
+            for name in ("rfft_half", "irfft_tail"):
+                ms, plain_ms, lib_ms = k34_ms[i][name]
+                print(f"  {name} at {rows} rows, n = {n}: kernel {ms:.4f} ms, "
+                      f"plain {plain_ms:.4f} ms, library call {lib_ms:.4f} ms, "
+                      f"bound {b_ms:.4f} ms ({100 * b_ms / ms:.0f}% of it)  "
+                      f"({card})", flush=True)
     if bad:
         fail(f"below 110 dB: {bad}")
-    # rows of SB samples against rows of SB + 1 complex bins, either way;
-    # the library calls work on complex tensors, so they move the same bytes
-    rows = 6 * C
-    fft_cost = (4.0 * rows * SB + 8.0 * rows * (SB + 1), fft_flops(rows, SB))
-    bench_spec = torch.complex(bench_planes[0], bench_planes[1])
-    record("rfft_half", "bbcat_dsp_torch/csrc/half_fft.cu",
-           tpu_kernel("perm_rfft_half_pallas"), errs[0],
-           median_ms(lambda: k34.rfft_half_cuda(bench_x, 2 * SB)),
-           median_ms(lambda: k34.rfft_half_plain(bench_x, 2 * SB)),
-           *fft_cost,
-           library_ms=median_ms(lambda: torch.fft.rfft(bench_x, n=2 * SB)))
-    record("irfft_tail", "bbcat_dsp_torch/csrc/half_fft.cu",
-           tpu_kernel("perm_irfft_tail_pallas"), errs[1],
-           median_ms(lambda: k34.irfft_tail_cuda(bench_planes, 2 * SB)),
-           median_ms(lambda: k34.irfft_tail_plain(bench_planes, 2 * SB)),
-           *fft_cost,
-           library_ms=median_ms(lambda: torch.fft.irfft(
-               bench_spec, n=2 * SB)[..., SB:].contiguous()))
+    # the JSON line carries the group render's shape, the largest
+    for j, (name, func) in enumerate((("rfft_half", "perm_rfft_half_pallas"),
+                                      ("irfft_tail",
+                                       "perm_irfft_tail_pallas"))):
+        ms, plain_ms, lib_ms = k34_ms[0][name]
+        record(name, "bbcat_dsp_torch/csrc/half_fft.cu", tpu_kernel(func),
+               k34_ms[0]["err"][j], ms, plain_ms, *k34_ms[0]["cost"],
+               library_ms=lib_ms)
 
     # K2 xt-grouped tail MAC: (P, C, F, slot0)
     k2_err, bad = None, []

@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
-"""Time the port's fused head (K1) and head MAC (K7) on one NVIDIA GPU.
+"""Time the port's fused head (K1), head MAC (K7) and tail transforms
+(K3, K4) on one NVIDIA GPU.
 
     python3 scripts/kernel_times.py                  # from the repo root
     python3 scripts/kernel_times.py --define K1_TILE=8 --define K1_TILE=4
+    python3 scripts/kernel_times.py --only K34       # K3 and K4 alone
 
-Builds the CUDA kernels of ``bbcat_dsp_torch/csrc``, holds K1 and K7
-against their plain PyTorch versions at the paths' shapes and at small and
-ragged ones, and prints device-only median times (CUDA events behind a
-spin on the stream, 20 launches) of K1 at R = 48, 8 and 1 (C = 64, P = 16,
-B = 512), of K7 at its four path shapes, of K1's two launches apart
-(torch.profiler), and of K3, K4 and K5 beside the one PyTorch call that
-computes the same.  It runs on any tree that has the wrappers, so an older
-checkout gives the earlier kernels' times.
+Builds the CUDA kernels of ``bbcat_dsp_torch/csrc``, prints what ``ptxas``
+says of the K1, K7, K3 and K4 entries (registers, spills), holds K1, K7,
+K3 and K4 against their plain PyTorch versions at the paths' shapes and at
+small and ragged ones (K3/K4 at every size they serve), and prints
+device-only median times (CUDA events behind a spin on the stream, 20
+launches) of K1 at R = 48, 8 and 1 (C = 64, P = 16, B = 512), of K7 at its
+four path shapes, of K1's two launches apart (torch.profiler), of K3 and
+K4 at their four path shapes (the render's 384 rows and the super-step's
+64 rows of n = 8192, the streamed block's 64 and the uniform render's 3072
+rows of n = 1024) beside ``torch.fft.rfft`` and ``torch.fft.irfft`` with
+the tail half copied, and of K5 beside ``permute().contiguous()``.  It
+runs on any tree that has the wrappers, so an older checkout gives the
+earlier kernels' times.
 
 Each ``--define NAME=VALUE`` (comma-separated for several at once) builds
 the library once more with ``-DNAME=VALUE`` and times it in turn, then the
@@ -46,13 +53,28 @@ K7_SHAPES = ((C, 16, 1, 513, 0), (C, 16, 8, 513, 0), (C, 6, 1, 4097, 0),
              (12, 6, 1, 4097, 0), (C, 1, 3, 513, 0), (5, 3, 17, 33, 0),
              (C, 16, 1, 513, 7), (5, 7, 19, 33, 3), (3, 64, 33, 17, 0),
              (5, 20, 5, 33, 0))
+# (rows' shape, n); the first four are the paths' shapes, timed; then every
+# size at a single, an odd and a larger odd row count, and row counts that
+# leave the last CTA of a packed launch partly empty
+K34_SHAPES = (((6, C), 8192), ((C,), 8192), ((C,), 1024), ((48, C), 1024),
+              ((128, C), 1024), ((128, 2), 1024), ((530,), 1024),
+              ((1061,), 512), ((13,), 64), ((7,), 128), ((1059,), 128),
+              *(((r,), 2 * h) for h in (8192, 32, 4096, 64, 2048, 128, 1024,
+                                        256, 512) for r in (1, 5, 67)))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--define", action="append", default=[],
                     help="NAME=VALUE[,NAME=VALUE...]: one more build")
+    ap.add_argument("--only", default="K1,K7,K34",
+                    help="which of K1, K7, K34 each build runs")
     args = ap.parse_args()
+    only = set(args.only.split(","))
+    entries = [name for key, names in (
+        ("K1", ("fused_head", "windows_kernel", "mac_inverse")),
+        ("K7", ("head_mac",)), ("K34", ("rfft_half", "irfft_tail")))
+        if key in only for name in names]
 
     import torch
 
@@ -118,8 +140,7 @@ def main() -> int:
         lines = _build.BUILD_LOG.splitlines()
         for i, line in enumerate(lines):
             if "Compiling entry" in line and any(
-                    k in line for k in ("fused_head", "windows_kernel",
-                                        "mac_inverse", "head_mac")):
+                    k in line for k in entries):
                 used = " ".join(x.strip() for x in lines[i + 1:i + 4]
                                 if "Used" in x or "spill" in x)
                 print(f"  ptxas {line.strip()[-70:]} | {used}")
@@ -130,7 +151,7 @@ def main() -> int:
             return torch.randn(shape, generator=gen, device=dev)
 
         ok = True
-        for Cc, Pp, Bb, R in K1_SHAPES:
+        for Cc, Pp, Bb, R in K1_SHAPES if "K1" in only else ():
             F = Bb + 1
             a = (randn(Cc, R * Bb), randn(2, Pp, Cc, F), randn(2, Cc, F),
                  randn(2, Pp, Cc, F))
@@ -145,7 +166,7 @@ def main() -> int:
                 line += (f"  {ms:.4f} ms  "
                          f"{launches_us(lambda: k1.fused_head_cuda(*a, Bb))}")
             print(line, flush=True)
-        for Cc, Pp, R, F, extra in K7_SHAPES:
+        for Cc, Pp, R, F, extra in K7_SHAPES if "K7" in only else ():
             a = (randn(2, Pp + R + extra, Cc, F), randn(2, Pp, Cc, F))
             got = k79.head_mac_cuda(*a, R)
             torch.cuda.synchronize()
@@ -156,6 +177,31 @@ def main() -> int:
             if Cc == C:
                 line += f"  {median_ms(lambda: k79.head_mac_cuda(*a, R)):.4f} ms"
             print(line, flush=True)
+        worst = []   # of the shapes that are not timed, one line in all
+        for i, (lead, n) in enumerate(K34_SHAPES if "K34" in only else ()):
+            h = n // 2
+            x, X = randn(*lead, h), randn(2, *lead, h + 1)
+            got = (k34.rfft_half_cuda(x, n), k34.irfft_tail_cuda(X, n))
+            torch.cuda.synchronize()
+            s = [snr(w, g) for g, w in zip(got, (k34.rfft_half_plain(x, n),
+                                                 k34.irfft_tail_plain(X, n)))]
+            ok &= min(s) >= 110.0
+            line = f"{tag} K3/K4 rows={lead} n={n}: {s[0]:.1f} {s[1]:.1f} dB"
+            if i < 4:
+                Xc = torch.complex(X[0], X[1])
+                line += (
+                    f"  K3 {median_ms(lambda: k34.rfft_half_cuda(x, n)):.4f}"
+                    f" ms (rfft {median_ms(lambda: torch.fft.rfft(x, n=n)):.4f})"
+                    f"  K4 {median_ms(lambda: k34.irfft_tail_cuda(X, n)):.4f}"
+                    " ms (irfft, tail copied "
+                    f"{median_ms(lambda: torch.fft.irfft(Xc, n=n)[..., h:].contiguous()):.4f})")
+            elif min(s) >= 110.0:
+                worst.append(min(s))
+                continue
+            print(line, flush=True)
+        if worst:
+            print(f"{tag} K3/K4 at {len(worst)} more shapes: >= "
+                  f"{min(worst):.1f} dB", flush=True)
         return ok
 
     base = list(_build.NVCC_FLAGS)
@@ -172,17 +218,7 @@ def main() -> int:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    x = torch.randn((6, C, 4096), generator=gen, device=dev)
-    X = torch.randn((2, 6, C, 4097), generator=gen, device=dev)
-    Xc = torch.complex(X[0], X[1])
     xs = torch.randn((C, 6 * 4096), generator=gen, device=dev)
-    print(f"K3 {median_ms(lambda: k34.rfft_half_cuda(x, 8192)):.4f} ms, "
-          f"torch.fft.rfft {median_ms(lambda: torch.fft.rfft(x, n=8192)):.4f}")
-    print(f"K4 {median_ms(lambda: k34.irfft_tail_cuda(X, 8192)):.4f} ms, "
-          f"torch.fft.irfft "
-          f"{median_ms(lambda: torch.fft.irfft(Xc, n=8192)):.4f}, with the "
-          "tail half copied "
-          f"{median_ms(lambda: torch.fft.irfft(Xc, n=8192)[..., 4096:].contiguous()):.4f}")
     print(f"K5 {median_ms(lambda: k56.gather_supers_cuda(xs, 6)):.4f} ms, "
           "permute().contiguous() "
           f"{median_ms(lambda: xs.reshape(C, 6, 4096).permute(1, 0, 2).contiguous()):.4f}")

@@ -10,9 +10,10 @@ layout, which the port does not serve.  The CUDA kernels run
 only on the card (``chip_smoke.py`` holds each against these plain
 versions there); here their wrappers are checked to refuse what they do
 not take, before any build.  The fused head (K1) and the head MAC (K7)
-split their work over the card in ways the plain versions do not: models
-of those schedules in plain PyTorch, each unit reading only what its CTA
-reads, are held against the plain versions and the contracts here.
+split their work over the card in ways the plain versions do not, and
+the tail transforms (K3/K4) carry their own FFT: models of those schedules
+in plain PyTorch, each unit reading only what its CTA reads, are held
+against the plain versions and the contracts here.
 """
 
 import jax
@@ -299,6 +300,206 @@ def test_tail_transforms_plain_match_pallas_interpret(rng):
         jnp.asarray(np.stack([pspec.real, pspec.imag]).astype(np.float32)),
         n, interpret=True)
     got = k34.irfft_tail_plain(torch.from_numpy(spec), n).numpy()
+    assert snr_db(np.asarray(want), got) >= 90.0
+
+
+# ---- the schedule of the CUDA K3 and K4, modelled in PyTorch --------------------
+
+def _k34_rows_per_cta(M, T):
+    """``rows_per_cta`` of ``csrc/half_fft.cu``: a warp's worth of rows,
+    doubled up to 256 threads while 264 CTAs remain."""
+    cap = max(256 // T, 1)
+    r = min(max(32 // T, 1), cap)
+    while 2 * r <= cap and 2 * r <= M // 264:
+        r *= 2
+    return r
+
+
+def _swizzled(i, NP):
+    """``Swizzled<NP>`` of ``csrc/fft_common.cuh``."""
+    if NP == 16:
+        return i ^ ((i >> 4) & 15)
+    return i ^ ((i >> 4) & 7) ^ ((i >> 3) & 8)
+
+
+def _dft_rows(R, rows, n_in):
+    """Rows ``rows`` of the R-point DFT matrix over its first ``n_in``
+    inputs, complex64."""
+    q = torch.tensor(rows, dtype=torch.float64)[:, None]
+    m = torch.arange(n_in, dtype=torch.float64)[None, :]
+    return torch.polar(torch.ones(len(rows), n_in, dtype=torch.float64),
+                       -2.0 * np.pi * q * m / R).to(torch.complex64)
+
+
+def _fft_regs_model(v, B, NP, tw, upper_zero=False, tail_only=False):
+    """``fft_regs`` of ``csrc/fft_common.cuh`` for the transforms of one
+    CTA: ``v [rows, NP, T]`` holds ``z[t + m T]`` at ``[m, t]``, and comes
+    back as the transform in the same layout.  Stockham stages of radix NP,
+    then what is left, with the kernel's twiddle indices into its stage
+    tables ``tw`` and its swizzled exchange buffer, every slot of which
+    must be written before it is read.  ``upper_zero``: the first stage
+    reads ``v[:, :NP/2]`` alone.  ``tail_only``: the last stage computes
+    ``v[:, NP/2:]`` alone and leaves NaN in the rest."""
+    rows, _, T = v.shape
+    t = torch.arange(T)
+    NS, table = 1, 0
+    v = v.clone()
+    if upper_zero:
+        v[:, NP // 2:] = float("nan")
+    while True:
+        R = min(NP, B // NS)
+        G = NP // R
+        last = NS * R == B
+        if NS > 1:
+            for u in range(G):
+                k = (t + u * T) & (NS - 1)
+                for q in range(1, R):
+                    v[:, u + q * G] *= tw[table + (q - 1) * NS + k]
+            table += (R - 1) * NS
+        n_in = R // 2 if upper_zero and NS == 1 else R
+        outs = list(range(R // 2, R)) if tail_only and last else list(range(R))
+        D = _dft_rows(R, outs, n_in)
+        new = torch.full_like(v, float("nan"))
+        for u in range(G):
+            ins = v[:, [u + q * G for q in range(n_in)]]       # [rows, n_in, T]
+            new[:, [u + q * G for q in outs]] = torch.einsum("qm,rmt->rqt",
+                                                             D, ins)
+        v = new
+        if last:
+            assert table == len(tw) - (B + 1)    # every stage table was used
+            return v
+        buf = torch.full((rows, B), float("nan"), dtype=v.dtype)
+        for u in range(G):
+            j = t + u * T
+            k = j & (NS - 1)
+            d = (j - k) * R + k
+            for q in range(R):
+                buf[:, _swizzled(d + q * NS, NP)] = v[:, u + q * G]
+        assert not torch.isnan(buf.real).any()
+        for m in range(NP):
+            v[:, m] = buf[:, _swizzled(t + m * T, NP)]
+        NS *= R
+
+
+def _k34_ctas(M, h):
+    """The rows of each CTA of a launch over ``M`` rows."""
+    T = h // k34._points(h)
+    rpc = _k34_rows_per_cta(M, T)
+    return [range(c, min(c + rpc, M)) for c in range(0, M, rpc)]
+
+
+def _k34_tables(n):
+    """The stage tables with the real transform's twiddles behind them
+    (the FFT model checks where the one ends), and the latter alone."""
+    tw = torch.view_as_complex(torch.from_numpy(k34._twiddle_table(n)))
+    return tw, tw[-(n // 2 + 1):]
+
+
+def _rfft_half_model(x, n):
+    """``rfft_half_kernel``: per CTA, its rows' sample pairs (the lower
+    half of the packed window; the zero half is never made), the pruned
+    transform, and the bins ``k < h/2`` and ``h - k`` together from
+    ``Z[k]`` in registers and ``Z[h-k]`` through half an exchange more, in
+    natural order; thread 0 adds the middle bin."""
+    M, h = x.shape
+    NP = k34._points(h)
+    T = h // NP
+    tw, twh = _k34_tables(n)
+    t = torch.arange(T)
+    out = torch.full((M, h + 1), float("nan"), dtype=torch.complex64)
+    for rows in _k34_ctas(M, h):
+        z = torch.view_as_complex(x[rows.start:rows.stop].reshape(-1, h // 2, 2))
+        v = torch.full((len(rows), NP, T), float("nan"), dtype=torch.complex64)
+        v[:, :NP // 2] = z.reshape(-1, NP // 2, T)
+        v = _fft_regs_model(v, h, NP, tw, upper_zero=True)
+        buf = torch.full((len(rows), h), float("nan"), dtype=torch.complex64)
+        for m in range(NP // 2, NP):
+            buf[:, t + m * T] = v[:, m]
+        buf[:, 0] = v[:, 0, 0]            # k = 0 pairs Z[0] with itself
+        for m in range(NP // 2):
+            k = t + m * T
+            zk, zc = v[:, m], buf[:, (h - k) & (h - 1)].conj()
+            e, o = 0.5 * (zk + zc), twh[k] * (-0.5j * (zk - zc))
+            Xk, Xhk = e + o, (e - o).conj()
+            Xk.imag[:, k == 0] = 0.0
+            Xhk.imag[:, k == 0] = 0.0
+            out[rows.start:rows.stop, k] = Xk
+            out[rows.start:rows.stop, h - k] = Xhk
+        mid = v[:, NP // 2, 0]            # the middle bin, its own partner
+        out[rows.start:rows.stop, h // 2] = mid.conj()
+    return torch.stack([out.real, out.imag])
+
+
+def _irfft_tail_model(planes, n):
+    """``irfft_tail_kernel``: per CTA, the packed spectrum from ``X[k]`` and
+    ``X[h-k]`` with DC's and Nyquist's imaginary parts dropped, re and im
+    swapped into the forward transform and out of it, and of the last
+    stage only the tail half's outputs."""
+    _, M, F = planes.shape
+    h = F - 1
+    NP = k34._points(h)
+    T = h // NP
+    tw, twh = _k34_tables(n)
+    t = torch.arange(T)
+    Xc = torch.complex(planes[0], planes[1])
+    y = torch.full((M, h), float("nan"))
+    swap = lambda z: torch.complex(z.imag, z.real)
+    for rows in _k34_ctas(M, h):
+        Xr = Xc[rows.start:rows.stop]
+        v = torch.empty((len(rows), NP, T), dtype=torch.complex64)
+        for m in range(NP):
+            k = t + m * T
+            a, b = Xr[:, k].clone(), Xr[:, h - k].clone()
+            a.imag[:, k == 0] = 0.0
+            b.imag[:, k == 0] = 0.0
+            b = b.conj()
+            v[:, m] = swap(0.5 * (a + b) + 0.5j * (a - b) * twh[k].conj())
+        v = _fft_regs_model(v, h, NP, tw, tail_only=True)
+        z = swap(v[:, NP // 2:]).reshape(len(rows), h // 2) / h
+        y[rows.start:rows.stop] = torch.view_as_real(z).reshape(-1, h)
+    return y
+
+
+@pytest.mark.parametrize("h,rows", [
+    (32, 1), (32, 5), (32, 13),        # 8 rows a CTA: 13 leaves 3 slots empty
+    (64, 1), (64, 5), (64, 7),         # 4 rows a CTA
+    (256, 1), (256, 5), (256, 531),    # 2 rows a CTA from 528 rows on
+    (512, 1), (512, 5), (512, 529),
+    (1024, 5), (1024, 529),            # 16 points a thread: radix 16, 16, 4
+    (2048, 1), (2048, 5), (2048, 3),   # radix 16, 16, 8
+    (4096, 1), (4096, 5), (4096, 3),   # radix 16, 16, 16; a row a CTA
+    (8192, 1), (8192, 5), (8192, 3),   # radix 16, 16, 16, 2
+])
+def test_tail_transform_schedules_match_plain(rng, h, rows):
+    n = 2 * h
+    x, spec = _arrays(rng, (rows, h), (2, rows, h + 1))
+    x, spec = torch.from_numpy(x), torch.from_numpy(spec)
+    got = _rfft_half_model(x, n)
+    assert not torch.isnan(got).any()
+    assert snr_db(k34.rfft_half_plain(x, n).numpy(), got.numpy()) >= 110.0
+    got = _irfft_tail_model(spec, n)
+    assert not torch.isnan(got).any()
+    assert snr_db(k34.irfft_tail_plain(spec, n).numpy(), got.numpy()) >= 110.0
+
+
+def test_tail_transform_schedules_match_pallas_interpret(rng):
+    """The models against the Pallas kernels, mapped from the permuted bin
+    order; the kernels' bf16 split bounds the agreement, as above."""
+    n, r, rows = 4096, 8, 8
+    x = rng.standard_normal((rows, n // 2)).astype(np.float32)
+    perm = np.asarray(perm_rfft_half_pallas(jnp.asarray(x), n, radix=r,
+                                            interpret=True))
+    std = jfft.unpermute_half_spectrum(perm[0] + 1j * perm[1], n, radix=r)
+    got = _rfft_half_model(torch.from_numpy(x), n).numpy()
+    assert snr_db(np.stack([std.real, std.imag]), got) >= 90.0
+
+    spec = rng.standard_normal((2, rows, n // 2 + 1)).astype(np.float32)
+    spec[1][:, [0, -1]] = 0.0
+    pspec = jfft.permute_half_spectrum(spec[0] + 1j * spec[1], n, radix=r)
+    want = perm_irfft_tail_pallas(
+        jnp.asarray(np.stack([pspec.real, pspec.imag]).astype(np.float32)),
+        n, interpret=True)
+    got = _irfft_tail_model(torch.from_numpy(spec), n).numpy()
     assert snr_db(np.asarray(want), got) >= 90.0
 
 
