@@ -7,10 +7,13 @@ The port serves, on an NVIDIA Hopper card and on the CPU:
   by super-block or by small block, click-free IR exchange), the uniform
   :class:`~bbcat_dsp_torch.convolve.BlockConvolver` and the MIMO/HRTF
   :class:`~bbcat_dsp_torch.convolve.MatrixConvolver`;
-- biquad design and the modal IIR engine (:mod:`~bbcat_dsp_torch.filters`);
+- biquad design, the modal IIR engine (stage by stage, or a whole cascade
+  in its parallel form), fractional delay reads and the resampler
+  (:mod:`~bbcat_dsp_torch.filters`) over a ring
+  (:mod:`~bbcat_dsp_torch.buffers`);
 - BS.1770 loudness and true peak (:mod:`~bbcat_dsp_torch.loudness`);
-- the binaural renderer and the mixdown pipeline
-  (:mod:`~bbcat_dsp_torch.models`).
+- the binaural renderer, the EQ and delay pipeline and the mixdown
+  pipeline (:mod:`~bbcat_dsp_torch.models`).
 
 On the card the convolvers run eight CUDA kernels written for ``sm_90a``
 (``csrc/``); on the CPU the kernels' plain PyTorch versions.  The port
@@ -18,7 +21,7 @@ imports PyTorch and never JAX; the JAX package stays the reference it is
 tested against.
 """
 
-from . import convolve, filters, formats, loudness, models, ops_hook
+from . import buffers, convolve, filters, formats, loudness, models, ops_hook
 from .convolve import (
     BlockConvolver,
     MatrixConvolver,
@@ -26,9 +29,9 @@ from .convolve import (
     NonUniformState,
 )
 from .loudness import LoudnessMeter
-from .models import BinauralRenderer, MixdownPipeline
+from .models import BinauralRenderer, EQDelayPipeline, MixdownPipeline
 
-__all__ = ["convolve", "filters", "formats", "loudness", "models", "ops_hook",
-           "BlockConvolver", "MatrixConvolver", "NonUniformConvolver",
-           "NonUniformState", "LoudnessMeter", "BinauralRenderer",
-           "MixdownPipeline"]
+__all__ = ["buffers", "convolve", "filters", "formats", "loudness", "models",
+           "ops_hook", "BlockConvolver", "MatrixConvolver",
+           "NonUniformConvolver", "NonUniformState", "LoudnessMeter",
+           "BinauralRenderer", "EQDelayPipeline", "MixdownPipeline"]

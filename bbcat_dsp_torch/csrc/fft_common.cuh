@@ -248,8 +248,11 @@ struct Swizzled {
 };
 
 // The radix of the stage that finds NS points combined.
+__host__ __device__ constexpr int stage_radix(int B, int NP, int NS) {
+  return B / NS >= NP ? NP : B / NS;
+}
 template <int B, int NP, int NS>
-constexpr int kStageRadix = (B / NS >= NP) ? NP : B / NS;
+constexpr int kStageRadix = stage_radix(B, NP, NS);
 
 // Twiddles: the factor exp(-2 pi i q k / (NS R)) on input q of butterfly
 // k < NS of the stage that finds NS points combined.
@@ -272,7 +275,7 @@ template <int B, int NP, int UPTO>
 __host__ __device__ constexpr int stage_tables_size() {
   int size = 0;
   for (int ns = NP; ns < UPTO; ns *= NP)
-    size += ((B / ns >= NP ? NP : B / ns) - 1) * ns;
+    size += (stage_radix(B, NP, ns) - 1) * ns;
   return size;
 }
 template <int B, int NP>

@@ -212,20 +212,35 @@ int launch(Kernel kernel, const float* in, const float2* tw, float* out, int M,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The kernel of ``name`` for half size h; every power of two the wrappers
-// serve.
-#define BBCAT_HALF_DISPATCH(name, h, ...)                       \
-  switch (h) {                                                  \
-    case 32: return launch<32>(name<32>, __VA_ARGS__);          \
-    case 64: return launch<64>(name<64>, __VA_ARGS__);          \
-    case 128: return launch<128>(name<128>, __VA_ARGS__);       \
-    case 256: return launch<256>(name<256>, __VA_ARGS__);       \
-    case 512: return launch<512>(name<512>, __VA_ARGS__);       \
-    case 1024: return launch<1024>(name<1024>, __VA_ARGS__);    \
-    case 2048: return launch<2048>(name<2048>, __VA_ARGS__);    \
-    case 4096: return launch<4096>(name<4096>, __VA_ARGS__);    \
-    case 8192: return launch<8192>(name<8192>, __VA_ARGS__);    \
-    default: return static_cast<int>(cudaErrorInvalidValue);    \
+// What a host that lays out the twiddle table must agree on, for half
+// size H: the points a thread holds, each stage's radix in order, and the
+// table's length in complex entries.
+template <int H>
+int plan(int* points, int* radices, int cap, int* nstages, int* table_len) {
+  constexpr int NP = kPoints<H>;
+  *points = NP;
+  *table_len = stage_tables_size<H, NP, H>() + H + 1;
+  int n = 0;
+  for (int ns = 1; ns < H; ns *= bbcat::stage_radix(H, NP, ns), ++n)
+    if (n < cap) radices[n] = bbcat::stage_radix(H, NP, ns);
+  *nstages = n;
+  return n <= cap ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ``return CALL(h)`` with h as a template argument: every power of two the
+// wrappers serve.
+#define BBCAT_HALF_SWITCH(h, CALL)                             \
+  switch (h) {                                                 \
+    case 32: return CALL(32);                                  \
+    case 64: return CALL(64);                                  \
+    case 128: return CALL(128);                                \
+    case 256: return CALL(256);                                \
+    case 512: return CALL(512);                                \
+    case 1024: return CALL(1024);                              \
+    case 2048: return CALL(2048);                              \
+    case 4096: return CALL(4096);                              \
+    case 8192: return CALL(8192);                              \
+    default: return static_cast<int>(cudaErrorInvalidValue);   \
   }
 
 }  // namespace
@@ -237,16 +252,33 @@ extern "C" {
 int bbcat_rfft_half(const float* x, const void* tw, float* out, int M, int h,
                     cudaStream_t stream) {
   if (M < 1) return static_cast<int>(cudaErrorInvalidValue);
-  BBCAT_HALF_DISPATCH(rfft_half_kernel, h, x, static_cast<const float2*>(tw),
-                      out, M, stream)
+#define BBCAT_RFFT_HALF(H)                                                 \
+  launch<H>(rfft_half_kernel<H>, x, static_cast<const float2*>(tw), out, M, \
+            stream)
+  BBCAT_HALF_SWITCH(h, BBCAT_RFFT_HALF)
+#undef BBCAT_RFFT_HALF
 }
 
 // X [2, M, h+1] -> y [M, h]; h and tw as for bbcat_rfft_half.
 int bbcat_irfft_tail(const float* X, const void* tw, float* y, int M, int h,
                      cudaStream_t stream) {
   if (M < 1) return static_cast<int>(cudaErrorInvalidValue);
-  BBCAT_HALF_DISPATCH(irfft_tail_kernel, h, X, static_cast<const float2*>(tw),
-                      y, M, stream)
+#define BBCAT_IRFFT_TAIL(H)                                                \
+  launch<H>(irfft_tail_kernel<H>, X, static_cast<const float2*>(tw), y, M, \
+            stream)
+  BBCAT_HALF_SWITCH(h, BBCAT_IRFFT_TAIL)
+#undef BBCAT_IRFFT_TAIL
+}
+
+// The layout the kernels of half size h read their twiddle table in:
+// *points a thread, the stages' radices (at most cap are written,
+// *nstages counts them) and the table's length in complex entries.  The
+// wrapper holds its own layout against this before it makes a table.
+int bbcat_half_fft_plan(int h, int* points, int* radices, int cap,
+                        int* nstages, int* table_len) {
+#define BBCAT_PLAN(H) plan<H>(points, radices, cap, nstages, table_len)
+  BBCAT_HALF_SWITCH(h, BBCAT_PLAN)
+#undef BBCAT_PLAN
 }
 
 }  // extern "C"

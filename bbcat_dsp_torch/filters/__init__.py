@@ -1,4 +1,5 @@
-"""Filters: biquad design on the host and the modal IIR engine."""
+"""Filters: biquad design on the host, the modal IIR engine, fractional
+delay reads and the resampler that stands on them."""
 
 from .biquad import (
     FilterType,
@@ -7,7 +8,25 @@ from .biquad import (
     cascade_response,
     design_bank,
 )
-from .iir import ModalParams, ModalState, modal_apply, modal_init, modal_params
+from .fractional import (
+    ADDITIONAL_DELAY,
+    FractionalDelayLine,
+    additional_delay_required,
+    fractional_read,
+    fractional_read_stream,
+)
+from .iir import (
+    ModalParams,
+    ModalState,
+    ParallelCascadeParams,
+    ParallelCascadeState,
+    modal_apply,
+    modal_init,
+    modal_params,
+    parallel_cascade_apply,
+    parallel_cascade_params,
+)
+from .resample import Resampler, resample
 
 __all__ = [
     "FilterType",
@@ -15,9 +34,20 @@ __all__ = [
     "biquad_response",
     "cascade_response",
     "design_bank",
+    "ADDITIONAL_DELAY",
+    "FractionalDelayLine",
+    "additional_delay_required",
+    "fractional_read",
+    "fractional_read_stream",
     "ModalParams",
     "ModalState",
+    "ParallelCascadeParams",
+    "ParallelCascadeState",
     "modal_apply",
     "modal_init",
     "modal_params",
+    "parallel_cascade_apply",
+    "parallel_cascade_params",
+    "Resampler",
+    "resample",
 ]

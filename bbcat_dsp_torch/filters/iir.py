@@ -21,6 +21,11 @@ every block length:
   computes this scan with ``jax.lax.associative_scan`` in XLA, not in
   Pallas, so plain PyTorch is its counterpart.
 
+A whole static cascade of S biquads also runs in one go, in its parallel
+(partial-fraction) form: ``H(u) = c + sum_j r_j / (1 - p_j u)`` over its 2S
+poles, 2S independent one-pole recurrences on the same two scans, the
+poles as one more batch axis (:func:`parallel_cascade_apply`).
+
 Every function works on ``[..., T]`` tensors, time last, with the state as
 explicit tensors: a stream continues across calls.
 """
@@ -37,7 +42,8 @@ import torch
 from ..utils.precision import full_f32
 
 __all__ = ["ModalParams", "ModalState", "modal_params", "modal_init",
-           "modal_apply"]
+           "modal_apply", "ParallelCascadeParams", "ParallelCascadeState",
+           "parallel_cascade_params", "parallel_cascade_apply"]
 
 # chunk length of the Toeplitz branch
 _TOEP_CHUNK = 128
@@ -251,3 +257,101 @@ def modal_apply(x: torch.Tensor, params: ModalParams,
     last = torch.stack([xb[..., -1], xm1[..., -1], t.real[..., -1],
                         t.imag[..., -1], w.real[..., -1], w.imag[..., -1]])
     return y, ModalState(*last.unbind(0))
+
+
+class ParallelCascadeParams(NamedTuple):
+    """The parallel (partial-fraction) form of a whole biquad cascade:
+    ``H(u) = c + sum_j r_j / (1 - p_j u)`` over its ``K = 2 S`` simple
+    poles, float32 on one device."""
+
+    c: torch.Tensor    # [] direct gain
+    pr: torch.Tensor   # [K] poles (real, imaginary)
+    pi: torch.Tensor
+    rr: torch.Tensor   # [K] residues (real, imaginary)
+    ri: torch.Tensor
+
+
+class ParallelCascadeState(NamedTuple):
+    """The K one-pole states, ``[K, ...batch]`` (real, imaginary)."""
+
+    sr: torch.Tensor
+    si: torch.Tensor
+
+
+def parallel_cascade_params(coeffs, *, device,
+                            min_pole_dist: float = 1e-4
+                            ) -> ParallelCascadeParams:
+    """Factor ``[S, 5]`` host coefficients into the parallel form, in
+    float64, on ``device``.
+
+    The residues come from the factored form (each biquad's own quadratic):
+    expanding the 2S-order polynomials would wreck the poles.  Raises
+    ``ValueError`` where the decomposition is ill-conditioned (a pole on or
+    outside the unit circle, repeated or clustered poles, a zero pole, huge
+    residues); callers then run the stages one after the other through
+    :func:`modal_apply`."""
+    c = np.atleast_2d(np.asarray(coeffs, np.float64))
+    poles = []
+    for _, _, _, a1, a2 in c:
+        sq = np.sqrt(complex(a1 * a1 - 4.0 * a2))
+        poles += [(-a1 + sq) / 2.0, (-a1 - sq) / 2.0]
+    poles = np.asarray(poles)
+    if np.abs(poles).max() >= 1.0:
+        raise ValueError("unstable cascade")
+    K = poles.size
+    dist = np.abs(poles[:, None] - poles[None, :]) + np.eye(K)
+    if dist.min() < min_pole_dist:
+        raise ValueError("clustered/repeated poles: parallel form "
+                         "ill-conditioned; use the serial modal engine")
+    if not np.all(c[:, 4] != 0):
+        raise ValueError("zero pole (a2 == 0): use the serial modal engine")
+    c_direct = float(np.prod(c[:, 2]) / np.prod(c[:, 4]))
+    u = 1.0 / poles
+    num = np.prod(c[:, 0, None] + c[:, 1, None] * u + c[:, 2, None] * u * u,
+                  axis=0)
+    r = np.empty(K, complex)
+    for j in range(K):
+        r[j] = num[j] / np.prod(np.delete(1.0 - poles * u[j], j))
+    if not np.all(np.isfinite(r)) or np.abs(r).max() > 1e6:
+        raise ValueError("huge residues: parallel form ill-conditioned")
+
+    def dev(v):
+        return torch.from_numpy(np.array(v, np.float32)).to(device)
+
+    return ParallelCascadeParams(c=dev(c_direct), pr=dev(poles.real),
+                                 pi=dev(poles.imag), rr=dev(r.real),
+                                 ri=dev(r.imag))
+
+
+def parallel_cascade_apply(x: torch.Tensor, params: ParallelCascadeParams,
+                           state: ParallelCascadeState | None = None):
+    """The whole cascade over ``x [..., T]`` as one batched complex scan
+    over its K poles: ``(y, state')``.  Long blocks (T a multiple of 128, T
+    >= 256) take the Toeplitz products, every other T the doubling scan,
+    the JAX package's own gate."""
+    T = x.shape[-1]
+    K = params.pr.shape[0]
+    batch = tuple(x.shape[:-1])
+    if state is None:
+        z = x.new_zeros((K,) + batch)
+        state = ParallelCascadeState(z, z)
+    poles = torch.complex(params.pr, params.pi)
+    s0 = torch.complex(state.sr, state.si)
+    xb = x.expand((K,) + batch + (T,))
+    if T % _TOEP_CHUNK == 0 and T >= 2 * _TOEP_CHUNK:
+        L, n = _TOEP_CHUNK, T // _TOEP_CHUNK
+        Bf = math.prod(batch)
+        pw = _pole_powers(poles, L + 1)
+        qw = _pole_powers(pw[..., L], n + 1)
+        s = _cpx_affine_scan_const(pw, _toeplitz(pw, L), qw,
+                                   xb.reshape(K, Bf, T), s0.reshape(K, Bf))
+        s = s.reshape((K,) + batch + (T,))
+    else:
+        pw = _pole_powers(poles, T + 1)
+        pw = pw.reshape((K,) + (1,) * len(batch) + (T + 1,))
+        s = _cpx_affine_scan(pw, xb.to(torch.complex64), s0)
+    shape_k = (K,) + (1,) * (len(batch) + 1)
+    rr, ri = params.rr.reshape(shape_k), params.ri.reshape(shape_k)
+    y = params.c * x + (rr * s.real - ri * s.imag).sum(0)
+    last = torch.stack([s.real[..., -1], s.imag[..., -1]])
+    return y, ParallelCascadeState(*last.unbind(0))

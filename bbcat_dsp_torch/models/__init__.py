@@ -1,5 +1,5 @@
-"""Composed stream-processing models: the binaural renderer and the
-mixdown pipeline."""
+"""Composed stream-processing models: the binaural renderer, the EQ and
+delay pipeline and the mixdown pipeline."""
 
 from .binaural import (
     BinauralRenderer,
@@ -7,7 +7,8 @@ from .binaural import (
     binaural_init,
     binaural_step,
 )
-from .pipeline import MixdownPipeline
+from .pipeline import EQDelayPipeline, EQDelayState, MixdownPipeline
 
 __all__ = ["BinauralRenderer", "BinauralState", "binaural_init",
-           "binaural_step", "MixdownPipeline"]
+           "binaural_step", "EQDelayPipeline", "EQDelayState",
+           "MixdownPipeline"]

@@ -53,6 +53,8 @@ _SIGNATURES = {
     "bbcat_delayed_add": [_P] * 4 + [_I] * 3 + [_P],
     "bbcat_head_mac": [_P] * 3 + [_I] * 5 + [_P],
     "bbcat_rotated_mac": [_P] * 3 + [_I] * 4 + [_P],
+    "bbcat_half_fft_plan": [_I, _P, _P, _I, _P, _P],
+    "bbcat_xt_unrolled_parts": [],
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -11,6 +11,7 @@ in the standard (natural) bin order instead of the TPU's permuted one.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -59,11 +60,33 @@ def _twiddle_table(n: int) -> np.ndarray:
     return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
 
 
+def _check_plan(h: int, table_len: int) -> None:
+    """Hold this module's table layout for half size ``h`` against the
+    one ``csrc/half_fft.cu`` reads: the table has two owners, and a kernel
+    that reads another layout than the host wrote computes noise."""
+    points, nstages, length = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    radices = (ctypes.c_int * 16)()
+    code = _build.library().bbcat_half_fft_plan(
+        h, ctypes.byref(points), radices, len(radices),
+        ctypes.byref(nstages), ctypes.byref(length))
+    _build.check(code, "half_fft_plan")
+    theirs = (points.value, list(radices[:nstages.value]), length.value)
+    mine = (_points(h), [r for _, r in _stages(h)], table_len)
+    if theirs != mine:
+        raise RuntimeError(
+            f"twiddle table for h = {h}: the kernels read (points, radices, "
+            f"entries) = {theirs}, this module lays out {mine}; change "
+            "kPoints in csrc/half_fft.cu and _points here together")
+
+
 def _twiddles(n: int, device: torch.device) -> torch.Tensor:
-    """:func:`_twiddle_table` on ``device``, made once per size and card."""
+    """:func:`_twiddle_table` on ``device``, made once per size and card,
+    after its layout has been held against the kernels'."""
     key = (n, device)
     if key not in _TWIDDLES:
-        _TWIDDLES[key] = torch.from_numpy(_twiddle_table(n)).to(device)
+        table = _twiddle_table(n)
+        _check_plan(n // 2, table.shape[0])
+        _TWIDDLES[key] = torch.from_numpy(table).to(device)
     return _TWIDDLES[key]
 
 

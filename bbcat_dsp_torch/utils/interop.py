@@ -3,7 +3,8 @@
 :func:`from_jax_arrays` takes the two-level engine's ``H_head``, ``H_tail``
 and ``NonUniformState``, :func:`block_state_from_jax` a ``BlockConvolver``'s
 ``H`` and ``ConvolverState`` (:func:`matrix_state_from_jax` a
-``MatrixConvolver``'s), with every leaf already a numpy array (for
+``MatrixConvolver``'s), :func:`eq_delay_state_from_jax` an
+``EQDelayPipeline``'s ``EQDelayState``, with every leaf already a numpy array (for
 example ``jax.tree.map(np.asarray, conv.state)``), and each returns the
 port's tensors on ``device``, so a stream started in one package continues
 in the other.  A two-level stream crosses at a super-block boundary: the
@@ -22,13 +23,15 @@ from ..convolve.block import ConvolverState
 from ..convolve.fft import spectral_nbins
 from ..convolve.matrix import filter_from_planes
 from ..convolve.nonuniform import NonUniformState
-from ..filters.iir import ModalParams, ModalState
+from ..buffers.ring import Ring
+from ..filters.iir import ModalParams, ModalState, ParallelCascadeState
 from ..loudness.itu1770 import MeterState
 from ..models.binaural import BinauralState
+from ..models.pipeline import EQDelayState
 
 __all__ = ["from_jax_arrays", "block_state_from_jax", "matrix_state_from_jax",
            "modal_from_jax", "meter_state_from_jax", "binaural_state_from_jax",
-           "to_numpy"]
+           "ring_from_jax", "eq_delay_state_from_jax", "to_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -126,6 +129,25 @@ def binaural_state_from_jax(H, state, *, block: int, device):
     H, conv = matrix_state_from_jax(H, state.conv, block=block, device=device)
     eq = tuple(modal_from_jax(s, device=device) for s in state.eq)
     return H, BinauralState(eq=eq, conv=conv)
+
+
+def ring_from_jax(ring, *, device) -> Ring:
+    """A ``Ring`` (``data [..., L]``, ``writepos``) of numpy leaves as the
+    port's on ``device``, the write position as a host integer."""
+    return Ring(_tensor(ring.data, device), int(np.asarray(ring.writepos)))
+
+
+def eq_delay_state_from_jax(state, *, device) -> EQDelayState:
+    """An ``EQDelayPipeline``'s ``EQDelayState`` of numpy leaves as the
+    port's on ``device``: ``eq`` is the parallel form's state (``sr``, ``si
+    [K, C]``) or one ``ModalState`` a stage, ``ring`` the delay's ring.
+    Assign it to the port pipeline's ``state``."""
+    if hasattr(state.eq, "sr"):
+        eq = ParallelCascadeState(_tensor(state.eq.sr, device),
+                                  _tensor(state.eq.si, device))
+    else:
+        eq = tuple(modal_from_jax(s, device=device) for s in state.eq)
+    return EQDelayState(eq=eq, ring=ring_from_jax(state.ring, device=device))
 
 
 def to_numpy(tree):

@@ -7,12 +7,14 @@ Phases, each of which exits nonzero on failure:
 
 1. the card (``nvidia-smi`` name and power limit) and the PyTorch version;
    no CUDA device means exit 1 before anything else;
-2. build the eight CUDA kernels from ``bbcat_dsp_torch/csrc`` with nvcc,
+2. build the CUDA kernels from ``bbcat_dsp_torch/csrc`` with nvcc,
    one compiler per source, all at once;
 3. each kernel against its plain PyTorch version on the card, at the
    shapes its paths give it and at small and odd ones (for K1 and K7 also
    across their output tiles' edges; K3 and K4 at every size they serve,
-   32 to 8192, and at row counts that leave a CTA partly empty), with
+   32 to 8192, and at row counts that leave a CTA partly empty; K2 at
+   every partition count of its unrolled kernel and at counts of its
+   general one, at every queue cursor), with
    times (CUDA events, median of 20 launches) at the main paths' shapes
    (four each for K3, K4 and K7), each beside its bound: the
    larger of the bytes the function must move over 3.35 TB/s and its
@@ -60,7 +62,16 @@ Phases, each of which exits nonzero on failure:
    3342 cases 1-4; true peak of an inter-sample over; and the real-time
    factor of the config #4 step.  Phase 8 ends with the kernel launches
    of one call of each entry point, phase 9 with a profile of the headline
-   render, a binaural block and a config #4 step (device time by kernel).
+   render, a binaural block and a config #4 step (device time by kernel);
+10. the EQ and delay pipeline (BASELINE config #2: 8 channels, 8 PEQ
+   stages, block 4096, delays of 20 to 200 samples) over 16 distinct
+   blocks on both delay paths (one delay a channel; a slow sinusoidal
+   glide, one delay a sample) and through the modal fallback (a cascade
+   with a repeated stage), each against float64 ``lfilter`` and a float64
+   reading of the same ring positions at >= 90 dB; ``resample`` of a sine
+   against the closed form; the step's real-time factor (median of three
+   turns) with its device-only time and a profile.  This path runs no
+   kernel of the port, and the counts show it.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches, error, times and bound.
@@ -389,32 +400,55 @@ def main() -> None:
                k34_ms[0]["err"][j], ms, plain_ms, *k34_ms[0]["cost"],
                library_ms=lib_ms)
 
-    # K2 xt-grouped tail MAC: (P, C, F, slot0)
-    k2_err, bad = None, []
-    for P, Cc, F, slot0 in ((6, C, SB + 1, 0), (6, C, SB + 1, 3),
-                            (1, 1, 33, 0), (2, 5, 33, 1), (6, 8, 257, 5),
-                            (2, 8, SB + 1, 0), (1, 5, SB + 1, 0)):
-        args = (randn(2, P, Cc, F), randn(2, P, Cc, F), randn(2, P, Cc, F))
-        got = k2.xt_grouped_mac_cuda(*args, slot0)
-        want = k2.xt_grouped_mac_plain(*args, slot0)
-        s = snr_db(want.cpu().numpy(), got.cpu().numpy())
-        if not s >= 120.0:
-            bad.append(f"xt_grouped_mac P={P} C={Cc} F={F} slot0={slot0}")
-        print(f"xt_grouped_mac P={P} C={Cc} F={F} slot0={slot0}: "
-              f"{s:.1f} dB", flush=True)
-        if k2_err is None:
-            k2_err = float((got - want).abs().max())
-            bench_args = args
+    # K2 xt-grouped tail MAC: (P, C, F), each at every queue cursor.  The
+    # render's shape first (timed), then odd C F, every partition count of
+    # the unrolled kernel and counts of the general one, large shapes
+    # before small ones.  Each launch's output lands on memory that held
+    # NaN just before, so an element the kernel left out shows.
+    def k2_cost(P, Cc, F):
+        """Queue, xt and H in and the spectra out; P x P complex MACs
+        and 2P - 1 window sums a bin."""
+        return 4 * 8.0 * P * Cc * F, (8.0 * P * P + 4.0 * (2 * P - 1)) * Cc * F
+
+    unrolled = _build.library().bbcat_xt_unrolled_parts()
+    if unrolled != k2.XT_UNROLLED_PARTS:
+        fail(f"xt_grouped_mac: the kernel unrolls P <= {unrolled}, the "
+             f"wrapper says {k2.XT_UNROLLED_PARTS}")
+    k2_timed, bad = {}, []
+    for P, Cc, F in ((6, C, SB + 1), (12, C, SB + 1), (6, 7, SB + 1),
+                     (2, 8, SB + 1), (1, 5, SB + 1),
+                     *((P, 8, 257) for P in range(1, 9)),
+                     *((P, 5, 33) for P in range(1, 9)),
+                     (9, 8, 257), (20, 3, 65), (64, 2, 33), (1, 1, 33)):
+        path = "unrolled" if P <= unrolled else "general"
+        low = None
+        for slot0 in range(P):
+            args = (randn(2, P, Cc, F), randn(2, P, Cc, F), randn(2, P, Cc, F))
+            poison = torch.full_like(args[0], float("nan"))
+            del poison            # the launch's output takes this block
+            got = k2.xt_grouped_mac_cuda(*args, slot0)
+            want = k2.xt_grouped_mac_plain(*args, slot0)
+            s = snr_db(want.cpu().numpy(), got.cpu().numpy())
+            if not s >= 120.0:    # NaN compares false
+                bad.append(f"xt_grouped_mac P={P} C={Cc} F={F} slot0={slot0}")
+            low = s if low is None else min(low, s)
+        line = (f"xt_grouped_mac P={P} C={Cc} F={F} ({path} kernel), slot0 = "
+                f"0 .. {P - 1}: >= {low:.1f} dB")
+        if Cc == C:   # the render's shape and the general kernel's, timed
+            k2_timed[path] = (
+                float((got - want).abs().max()),
+                median_ms(lambda: k2.xt_grouped_mac_cuda(*args, P // 2)),
+                median_ms(lambda: k2.xt_grouped_mac_plain(*args, P // 2)))
+            b_ms = bound(*k2_cost(P, Cc, F))[0]
+            line += (f"; kernel {k2_timed[path][1]:.4f} ms, plain "
+                     f"{k2_timed[path][2]:.4f} ms, bound {b_ms:.4f} ms "
+                     f"({100 * b_ms / k2_timed[path][1]:.0f}% of it)  ({card})")
+        print(line, flush=True)
     if bad:
         fail(f"below 120 dB: {bad}")
     record("xt_grouped_mac", "bbcat_dsp_torch/csrc/xt_grouped_mac.cu",
-           tpu_kernel("xt_grouped_mac_pallas"), k2_err,
-           median_ms(lambda: k2.xt_grouped_mac_cuda(*bench_args, 0)),
-           median_ms(lambda: k2.xt_grouped_mac_plain(*bench_args, 0)),
-           # queue, xt, H in and the spectra out; P x P MACs and 2P - 1
-           # window sums a bin
-           4 * 8.0 * 6 * C * (SB + 1),
-           (8.0 * 6 * 6 + 4.0 * (2 * 6 - 1)) * C * (SB + 1))
+           tpu_kernel("xt_grouped_mac_pallas"), *k2_timed["unrolled"],
+           *k2_cost(6, C, SB + 1))
 
     # K5 gather_supers: (C, nsup, B2); B2 = 33 takes the scalar path
     first = True
@@ -1246,6 +1280,166 @@ def main() -> None:
                     lambda i: rend.process_block(
                         xl[:, i * BLOCK:(i + 1) * BLOCK]), 40)
     where_time_goes("config #4 step", lambda i: step4(xs4[i % 10]), 4)
+
+    # ---- 10. EQ cascade and fractional delay (config #2) ------------------------
+    from bbcat_dsp_torch import EQDelayPipeline
+    from bbcat_dsp_torch.filters import resample
+    from bbcat_dsp_torch.filters.fractional import (
+        ADDITIONAL_DELAY,
+        OVERSAMPLING,
+        TAPS,
+        polyphase_table,
+    )
+
+    C2, B2, NBLK2, MAX_DELAY = 8, 4096, 16, 256.0   # scripts/bench_all.py #2
+    eq2 = np.stack([biquad_coeffs(FilterType.PEQ, 100.0 * (i + 1), FS,
+                                  gain=3.0 * (-1.0) ** i) for i in range(8)])
+    T2 = NBLK2 * B2
+    x2 = rng.standard_normal((C2, T2)).astype(np.float32)
+    x2d = torch.from_numpy(x2).to(dev)
+    steady = np.linspace(20.0, 200.0, C2).astype(np.float32)
+    # a slow sinusoidal glide between 20 and 200 samples, 0.5 Hz, each
+    # channel at its own phase
+    glide = (110.0 + 90.0 * np.sin(2 * np.pi * 0.5 * np.arange(T2) / FS
+                                   + np.arange(C2)[:, None])).astype(np.float32)
+    table64 = polyphase_table().reshape(TAPS, OVERSAMPLING)   # [tap, phase]
+
+    def cascade64(x, stages):
+        y = np.asarray(x, np.float64)
+        for c in stages:
+            y = lfilter64(y, c)
+        return y
+
+    def delayed64(y, delays, L: int):
+        """A float64 reading of the ring positions the pipeline reads: the
+        positions in float32 as the contract computes them (block start
+        modulo ``L`` in integers, minus the delay, plus ``L``, modulo
+        ``L``), phase and base from them, then the 14 taps over the
+        float64 samples ``y [C, T]`` that lie at those places in a ring of
+        ``L`` written up to the block's end.  ``delays [C]`` or ``[C, T]``."""
+        out = np.zeros_like(y)
+        rows = np.arange(y.shape[0])[:, None, None]
+        for blk in range(y.shape[-1] // B2):
+            end = (blk + 1) * B2
+            d = (delays[:, blk * B2:end] if delays.ndim > 1
+                 else delays[:, None])
+            first = np.float32((end - B2) % L)
+            # one position a sample, or the block's first alone: the
+            # stream read takes phase and base from it for the whole block
+            ahead = (np.arange(B2, dtype=np.float32) if delays.ndim > 1
+                     else np.float32(0.0))
+            pos = np.remainder((first + ahead) - d + np.float32(L),
+                               np.float32(L))
+            phase = OVERSAMPLING - 1 - (np.floor(pos * np.float32(
+                OVERSAMPLING)).astype(np.int64) % OVERSAMPLING)
+            base = (np.floor(pos).astype(np.int64) + L - TAPS) % L
+            if delays.ndim == 1:
+                base = base + np.arange(B2)
+            place = (base[..., None] + np.arange(TAPS)) % L     # [C, B, 14]
+            # the newest sample at each place: written at time m <= end - 1
+            m = end - 1 - (end - 1 - place) % L
+            taps = np.where(m >= 0, y[rows, np.maximum(m, 0)], 0.0)
+            out[:, end - B2:end] = np.sum(taps * table64.T[phase], -1)
+        return out
+
+    torch.cuda.synchronize()
+    ops_hook.reset_counts()
+
+    def drive2(label, stages, delays, nblk, parallel: bool):
+        """``nblk`` blocks through a fresh pipeline, held against float64."""
+        pipe = EQDelayPipeline(stages, C2, B2, MAX_DELAY, FS, device=dev)
+        if (pipe.psos is not None) != parallel:
+            fail(f"{label}: parallel form {pipe.psos is not None}, expected "
+                 f"{parallel}")
+        dd = torch.from_numpy(delays).to(dev)
+        ys = []
+        for i in range(nblk):
+            d = dd[:, i * B2:(i + 1) * B2] if dd.dim() > 1 else dd
+            ys.append(pipe.process_block(x2d[:, i * B2:(i + 1) * B2], d))
+        y = torch.cat(ys, -1).cpu().numpy()
+        n = nblk * B2
+        if y.shape != (C2, n) or not np.all(np.isfinite(y)):
+            fail(f"{label}: output shape {y.shape} or non-finite values")
+        if pipe.state.ring.writepos != n:
+            fail(f"{label}: write position {pipe.state.ring.writepos} != {n}")
+        ref = delayed64(cascade64(x2[:, :n], stages),
+                        delays[..., :n] if delays.ndim > 1 else delays,
+                        pipe.length)
+        hold_channels(f"{label} ({nblk} blocks of {B2}, ring {pipe.length})",
+                      ref, y)
+        return pipe
+
+    pipe2 = drive2("config #2, one delay a channel (the stream read)", eq2,
+                   steady, NBLK2, True)
+    pipe2m = drive2("config #2, a delay a sample (the gather read)", eq2,
+                    glide, NBLK2, True)
+    twice = np.concatenate([eq2[:7], eq2[:1]])   # stage 0 twice: no parallel form
+    pipe2f = drive2("config #2, the modal fallback (a stage repeated)", twice,
+                    steady, 4, False)
+
+    # resample of a 1 kHz sine against the closed form: output k reads
+    # input position k / ratio + 14, and the table's effective group delay
+    # is 8 samples (the contract of tests/test_filters.py, > 55 dB)
+    tone = np.sin(2 * np.pi * 1000.0 * np.arange(int(FS)) / FS)
+    toned = torch.from_numpy(np.broadcast_to(
+        tone.astype(np.float32), (C2, tone.size)).copy()).to(dev)
+    for ratio in (2.0, 44100.0 / 48000.0):
+        y = resample(toned, ratio).cpu().numpy()
+        n = y.shape[-1]
+        if n != int(np.floor((tone.size - ADDITIONAL_DELAY) * ratio)):
+            fail(f"resample x{ratio:.5f}: {n} samples out")
+        # the positions as float32, as resample computes them
+        at = (np.arange(n, dtype=np.float32) / np.float32(ratio)
+              + np.float32(ADDITIONAL_DELAY)).astype(np.float64)
+        want = np.sin(2 * np.pi * 1000.0 * (at - 8.0) / FS)
+        s = min(snr_db(want[100:-100], row[100:-100]) for row in y)
+        print(f"resample x{ratio:.5f} of a 1 kHz sine, {C2} x {tone.size} -> "
+              f"{n}: worst channel {s:.2f} dB against the closed form",
+              flush=True)
+        if not s > 55.0:
+            fail(f"resample x{ratio:.5f}: {s:.2f} dB <= 55")
+
+    # the step's real-time factor over the 16 distinct blocks, three turns
+    def turn2(pipe, delays) -> float:
+        dd = torch.from_numpy(delays).to(dev)
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for i in range(NBLK2):
+            d = dd[:, i * B2:(i + 1) * B2] if dd.dim() > 1 else dd
+            pipe.process_block(x2d[:, i * B2:(i + 1) * B2], d)
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / NBLK2
+
+    steady_d, glide_d = (torch.from_numpy(a).to(dev) for a in (steady, glide))
+    for label, pipe, delays, dd in (
+            ("one delay a channel", pipe2, steady, steady_d),
+            ("a delay a sample", pipe2m, glide, glide_d[:, :B2]),
+            ("the modal fallback", pipe2f, steady, steady_d)):
+        turn2(pipe, delays)                                   # warm
+        turns = sorted(turn2(pipe, delays) for _ in range(3))
+        it = iter(range(10 ** 6))
+
+        def one_block(pipe=pipe, dd=dd):
+            i = next(it) % NBLK2
+            pipe.process_block(x2d[:, i * B2:(i + 1) * B2], dd)
+
+        devo = device_ms(one_block, 8)
+        print(f"config #2 step, {label} ({C2} ch x {len(eq2)} stages, block "
+              f"{B2}): {turns[1]:.4f} ms a block back to back (median of "
+              f"three turns; {turns[0]:.4f} .. {turns[2]:.4f}), {devo} "
+              f"device-only median, {1e3 * B2 / FS / turns[1]:.2f} x real "
+              f"time ({card})", flush=True)
+        where_time_goes(f"config #2 step, {label} (mean of 16 blocks)",
+                        lambda i, f=one_block: f(), NBLK2)
+    counts = ops_hook.counts()
+    if any(counts["launches"].values()) or any(counts["plain"].values()):
+        fail(f"config #2 ran a kernel of the port or a plain version: {counts}")
+    print("config #2 runs no kernel of the port: the JAX path reaches no "
+          "Pallas kernel either; launches and plain calls stayed zero",
+          flush=True)
 
     for name in results:
         results[name]["launches"] = sum(c[name] for c in path_launches)

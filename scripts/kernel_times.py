@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time the port's fused head (K1), head MAC (K7) and tail transforms
-(K3, K4) on one NVIDIA GPU.
+"""Time the port's fused head (K1), head MAC (K7), tail transforms (K3,
+K4) and tail MAC (K2) on one NVIDIA GPU.
 
     python3 scripts/kernel_times.py                  # from the repo root
     python3 scripts/kernel_times.py --define K1_TILE=8 --define K1_TILE=4
     python3 scripts/kernel_times.py --only K34       # K3 and K4 alone
+    python3 scripts/kernel_times.py --only K2        # the tail MAC alone
 
 Builds the CUDA kernels of ``bbcat_dsp_torch/csrc``, prints what ``ptxas``
 says of the K1, K7, K3 and K4 entries (registers, spills), holds K1, K7,
@@ -16,7 +17,13 @@ four path shapes, of K1's two launches apart (torch.profiler), of K3 and
 K4 at their four path shapes (the render's 384 rows and the super-step's
 64 rows of n = 8192, the streamed block's 64 and the uniform render's 3072
 rows of n = 1024) beside ``torch.fft.rfft`` and ``torch.fft.irfft`` with
-the tail half copied, and of K5 beside ``permute().contiguous()``.  It
+the tail half copied, and of K5 beside ``permute().contiguous()``.  K2 is
+held against plain at the render's shape (P = 6, C = 64, F = 4097) at
+every queue cursor, at every partition count 1 .. 8 (the unrolled kernel)
+and above (the general one) and at odd ``C F``, large shapes before
+small ones, each
+launch into memory that was filled with NaN just before; it is timed at
+the render's shape beside its bound.  It
 runs on any tree that has the wrappers, so an older checkout gives the
 earlier kernels' times.
 
@@ -61,19 +68,26 @@ K34_SHAPES = (((6, C), 8192), ((C,), 8192), ((C,), 1024), ((48, C), 1024),
               ((1061,), 512), ((13,), 64), ((7,), 128), ((1059,), 128),
               *(((r,), 2 * h) for h in (8192, 32, 4096, 64, 2048, 128, 1024,
                                         256, 512) for r in (1, 5, 67)))
+# (P, C, F), each at every queue cursor; the first is the render's, timed
+K2_SHAPES = ((6, C, 4097), (6, 7, 4097), (2, 8, 4097), (1, 5, 4097),
+             (12, 8, 4097), *((p, 8, 257) for p in range(1, 9)),
+             *((p, 5, 33) for p in range(1, 9)), (9, 8, 257), (12, 5, 33),
+             (20, 3, 65), (64, 2, 33), (1, 1, 33))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--define", action="append", default=[],
                     help="NAME=VALUE[,NAME=VALUE...]: one more build")
-    ap.add_argument("--only", default="K1,K7,K34",
-                    help="which of K1, K7, K34 each build runs")
+    ap.add_argument("--only", default="K1,K7,K34,K2",
+                    help="which of K1, K7, K34, K2 each build runs")
     args = ap.parse_args()
     only = set(args.only.split(","))
     entries = [name for key, names in (
         ("K1", ("fused_head", "windows_kernel", "mac_inverse")),
-        ("K7", ("head_mac",)), ("K34", ("rfft_half", "irfft_tail")))
+        ("K7", ("head_mac",)), ("K34", ("rfft_half", "irfft_tail")),
+        ("K2", ("xt_mac_unrolled_kernelILi6", "xt_mac_unrolled_kernelILi8",
+                "xt_mac_general")))
         if key in only for name in names]
 
     import torch
@@ -87,6 +101,7 @@ def main() -> int:
     from bbcat_dsp_torch.ops.kernels import fused_head as k1
     from bbcat_dsp_torch.ops.kernels import half_fft as k34
     from bbcat_dsp_torch.ops.kernels import marshal as k56
+    from bbcat_dsp_torch.ops.kernels import spectral_fir as k2
     from bbcat_dsp_torch.ops.kernels import spectral_mac as k79
 
     card = subprocess.run(
@@ -202,6 +217,28 @@ def main() -> int:
         if worst:
             print(f"{tag} K3/K4 at {len(worst)} more shapes: >= "
                   f"{min(worst):.1f} dB", flush=True)
+        for Pp, Cc, F in K2_SHAPES if "K2" in only else ():
+            shape = (2, Pp, Cc, F)
+            low = []
+            for slot0 in range(Pp):
+                a = (randn(*shape), randn(*shape), randn(*shape))
+                poison = torch.full(shape, float("nan"), device=dev)
+                del poison          # the launch's output lands on it
+                got = k2.xt_grouped_mac_cuda(*a, slot0)
+                torch.cuda.synchronize()
+                low.append(snr(k2.xt_grouped_mac_plain(*a, slot0), got))
+            ok &= min(low) >= 110.0   # NaN compares false
+            path = "unrolled" if Pp <= k2.XT_UNROLLED_PARTS else "general"
+            line = (f"{tag} K2 P={Pp} C={Cc} F={F} ({path}), slot0 = 0 .. "
+                    f"{Pp - 1}: >= {min(low):.1f} dB")
+            if Cc == C:
+                nbytes = 4 * 8.0 * Pp * Cc * F
+                line += (f"  {median_ms(lambda: k2.xt_grouped_mac_cuda(*a, 0)):.4f}"
+                         f" ms at slot0 = 0, "
+                         f"{median_ms(lambda: k2.xt_grouped_mac_cuda(*a, 3)):.4f}"
+                         f" at 3; bound {nbytes / 3.35e9:.4f} ms "
+                         f"({nbytes / 1e6:.1f} MB over 3.35 TB/s)")
+            print(line, flush=True)
         return ok
 
     base = list(_build.NVCC_FLAGS)

@@ -10,10 +10,11 @@ layout, which the port does not serve.  The CUDA kernels run
 only on the card (``chip_smoke.py`` holds each against these plain
 versions there); here their wrappers are checked to refuse what they do
 not take, before any build.  The fused head (K1) and the head MAC (K7)
-split their work over the card in ways the plain versions do not, and
-the tail transforms (K3/K4) carry their own FFT: models of those schedules
-in plain PyTorch, each unit reading only what its CTA reads, are held
-against the plain versions and the contracts here.
+split their work over the card in ways the plain versions do not, the
+tail transforms (K3/K4) carry their own FFT, and the tail MAC (K2) walks
+its planes flat: models of those schedules in plain PyTorch or numpy,
+each unit reading only what its CTA reads, are held against the plain
+versions and the contracts here.
 """
 
 import jax
@@ -267,6 +268,74 @@ def test_xt_grouped_mac_plain_matches_pallas_interpret(rng):
     got = k2.xt_grouped_mac_plain(torch.from_numpy(q), torch.from_numpy(xt),
                                   torch.from_numpy(H), slot0)
     assert snr_db(np.asarray(want), got.numpy()) >= 110.0
+
+
+# ---- the schedule of the CUDA K2, modelled in numpy ----------------------------
+
+def _xt_grouped_mac_model(queue, xt, H, slot0):
+    """Both kernels of ``csrc/xt_grouped_mac.cu``, thread by thread over
+    flat ``[2, P, N]`` planes, ``N = C F``: thread ``at`` of whole CTAs of
+    128 owns element ``at`` of every partition (those past ``N`` return),
+    reads the queue's slot ``(slot0 + i) % P`` as the ``i``-th oldest half
+    spectrum, takes its sign from ``at % F``, forms the windows in place
+    (ascending, so ``t[k + 1]`` is still whole) and sums ``w[P - 1 + j - p]
+    H[p]``.  The unrolled kernel (``P <= kUnrolledParts``) and the general
+    one differ in where the windows live, not in this arithmetic; the
+    dispatch between them is by ``P`` alone.  Returns ``(out, path)``."""
+    _, P, C, F = H.shape
+    N = C * F
+    path = "unrolled" if P <= k2.XT_UNROLLED_PARTS else "general"
+    q, x, h = (a.reshape(2, P, N) for a in (queue, xt, H))
+    out = np.full((2, P, N), np.nan, np.float32)   # poisoned: all written?
+    at = np.arange(-(-N // 128) * 128, dtype=np.int64)
+    at = at[at < N]
+    s = np.where((at % F) & 1, -1.0, 1.0).astype(np.float32)
+    t = np.empty((2, 2 * P, N), np.float32)
+    for i in range(P):
+        slot = slot0 + i
+        if slot >= P:
+            slot -= P
+        t[:, i] = q[:, slot, at]
+        t[:, P + i] = x[:, i, at]
+    for k in range(2 * P - 1):
+        t[:, k] += s * t[:, k + 1]
+    for j in range(P):
+        ar = np.zeros(N, np.float32)
+        ai = np.zeros(N, np.float32)
+        for p in range(P):
+            k = P - 1 + j - p
+            ar += t[0, k] * h[0, p, at] - t[1, k] * h[1, p, at]
+            ai += t[0, k] * h[1, p, at] + t[1, k] * h[0, p, at]
+        out[0, j, at], out[1, j, at] = ar, ai
+    return out.reshape(H.shape), path
+
+
+@pytest.mark.parametrize("P,C,F,path", [
+    (6, 4, 33, "unrolled"),     # the headline's Pt
+    (6, 5, 33, "unrolled"),     # odd C F
+    (1, 2, 9, "unrolled"),      # one partition: a single window
+    (2, 6, 17, "unrolled"),
+    (3, 2, 129, "unrolled"),    # more than one CTA, the last partly empty
+    (4, 3, 8, "unrolled"),      # even F: rows start on either parity
+    (5, 2, 65, "unrolled"),
+    (7, 2, 33, "unrolled"),
+    (8, 2, 17, "unrolled"),     # the last unrolled count
+    (9, 2, 17, "general"),      # the first general one
+    (12, 3, 9, "general"),
+])
+def test_xt_grouped_mac_schedule_matches_plain_and_contract(rng, P, C, F,
+                                                            path):
+    for slot0 in range(P):
+        q, xt, H = _arrays(rng, *[(2, P, C, F)] * 3)
+        got, took = _xt_grouped_mac_model(q, xt, H, slot0)
+        assert took == path
+        assert np.all(np.isfinite(got))            # every element written
+        plain = k2.xt_grouped_mac_plain(*map(torch.from_numpy, (q, xt, H)),
+                                        slot0).numpy()
+        assert snr_db(plain, got) >= 110.0
+        want = _xla_xt_grouped_mac(
+            jnp.asarray(q), jnp.asarray(xt), jnp.asarray(H), slot0, 1, F)
+        assert snr_db(np.asarray(want), got) >= 110.0
 
 
 def test_cplane_mac_matches_xla_head_mac(rng):
@@ -712,6 +781,46 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(rng):
                              tail.transpose(1, 2).contiguous().transpose(1, 2))
     with pytest.raises(ValueError, match="CUDA"):
         k56.delayed_add_cuda(torch.zeros(C, 32), torch.zeros(2, C, 16), tail)
+
+
+class _FakePlanLibrary:
+    """Answers ``bbcat_half_fft_plan`` as ``csrc/half_fft.cu`` does for
+    a kernel built with ``points(h)`` points a thread."""
+
+    def __init__(self, points):
+        self.points = points
+
+    def bbcat_half_fft_plan(self, h, points, radices, cap, nstages, length):
+        NP, ns, n, size = self.points(h), 1, 0, 0
+        while ns < h:
+            r = min(NP, h // ns)
+            radices[n] = r
+            if ns > 1:
+                size += (r - 1) * ns
+            ns, n = ns * r, n + 1
+        points._obj.value, nstages._obj.value = NP, n
+        length._obj.value = size + h + 1
+        return 0
+
+
+@pytest.mark.parametrize("h", [32, 512, 1024, 8192])
+def test_twiddle_table_layout_is_held_against_the_kernels(monkeypatch, h):
+    """The twiddle table has two owners, the kernels and the wrapper: a
+    kernel built for other points a thread than the wrapper lays out is
+    refused before a table is made."""
+    table_len = k34._twiddle_table(2 * h).shape[0]
+    monkeypatch.setattr(k34._build, "library",
+                        lambda: _FakePlanLibrary(k34._points))
+    k34._check_plan(h, table_len)
+    with pytest.raises(RuntimeError, match="twiddle table"):
+        k34._check_plan(h, table_len + 1)
+    monkeypatch.setattr(k34._build, "library",
+                        lambda: _FakePlanLibrary(lambda h: 16))
+    if k34._points(h) == 16:
+        k34._check_plan(h, table_len)
+    else:
+        with pytest.raises(RuntimeError, match="change kPoints"):
+            k34._check_plan(h, table_len)
 
 
 def test_tail_transform_wrappers_refuse_what_the_kernels_do_not_take():
