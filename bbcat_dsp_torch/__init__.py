@@ -7,13 +7,22 @@ The port serves, on an NVIDIA Hopper card and on the CPU:
   by super-block or by small block, click-free IR exchange), the uniform
   :class:`~bbcat_dsp_torch.convolve.BlockConvolver` and the MIMO/HRTF
   :class:`~bbcat_dsp_torch.convolve.MatrixConvolver`;
-- biquad design, the modal IIR engine (stage by stage, or a whole cascade
-  in its parallel form), fractional delay reads and the resampler
+- the offline overlap-save convolution
+  (:func:`~bbcat_dsp_torch.convolve.offline_convolve`);
+- biquad design, the IIR engines (modal for fixed coefficients, stage by
+  stage or a whole cascade in its parallel form; the companion scans for
+  coefficients that change from sample to sample), the live EQ on them
+  (:class:`~bbcat_dsp_torch.filters.BiQuadFilterBank` with click-free
+  retargets, ``BiQuadCascade``, ``BiQuadBlock``,
+  :class:`~bbcat_dsp_torch.filters.FilterManager`), all-pass and comb
+  filters, fractional delay reads and the resampler
   (:mod:`~bbcat_dsp_torch.filters`) over a ring
   (:mod:`~bbcat_dsp_torch.buffers`);
 - BS.1770 loudness and true peak (:mod:`~bbcat_dsp_torch.loudness`);
-- the binaural renderer, the EQ and delay pipeline and the mixdown
-  pipeline (:mod:`~bbcat_dsp_torch.models`).
+- the binaural renderer, the EQ and delay pipeline, the mixdown pipeline
+  and the Schroeder reverb (:mod:`~bbcat_dsp_torch.models`);
+- state files that this package and the JAX package both read
+  (:mod:`~bbcat_dsp_torch.utils.checkpoint`).
 
 On the card the convolvers run eight CUDA kernels written for ``sm_90a``
 (``csrc/``); on the CPU the kernels' plain PyTorch versions.  The port
@@ -27,11 +36,21 @@ from .convolve import (
     MatrixConvolver,
     NonUniformConvolver,
     NonUniformState,
+    offline_convolve,
 )
+from .filters import BiQuadFilterBank, FilterManager
 from .loudness import LoudnessMeter
-from .models import BinauralRenderer, EQDelayPipeline, MixdownPipeline
+from .models import (
+    BinauralRenderer,
+    EQDelayPipeline,
+    MixdownPipeline,
+    SchroederReverb,
+)
+from .utils.checkpoint import load_state, save_state
 
 __all__ = ["buffers", "convolve", "filters", "formats", "loudness", "models",
            "ops_hook", "BlockConvolver", "MatrixConvolver",
            "NonUniformConvolver", "NonUniformState", "LoudnessMeter",
-           "BinauralRenderer", "EQDelayPipeline", "MixdownPipeline"]
+           "BinauralRenderer", "EQDelayPipeline", "MixdownPipeline",
+           "SchroederReverb", "BiQuadFilterBank", "FilterManager",
+           "offline_convolve", "load_state", "save_state"]

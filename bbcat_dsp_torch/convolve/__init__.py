@@ -1,6 +1,6 @@
 """Partitioned convolution: the two-level engine, the uniform
 BlockConvolver and the MatrixConvolver, each streaming with click-free IR
-exchange."""
+exchange; and the offline overlap-save convolution."""
 
 from .block import (
     BlockConvolver,
@@ -26,6 +26,7 @@ from .matrix import (
     matrix_step_crossfade,
     partition_ir_matrix,
 )
+from .offline import offline_convolve
 from .nonuniform import (
     NonUniformConvolver,
     NonUniformState,
@@ -56,4 +57,5 @@ __all__ = [
     "NonUniformState",
     "nonuniform_render",
     "nonuniform_render_looped",
+    "offline_convolve",
 ]

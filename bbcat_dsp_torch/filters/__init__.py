@@ -1,5 +1,24 @@
-"""Filters: biquad design on the host, the modal IIR engine, fractional
-delay reads and the resampler that stands on them."""
+"""Filters: biquad design on the host, the IIR engines (modal for fixed
+coefficients, the companion scans for coefficients that change from sample
+to sample), the filter bank, cascade and manager classes over them,
+all-pass and comb filters, fractional delay reads and the resampler that
+stands on them."""
+
+from .allpass import (
+    AllPassFilter,
+    AllPassFilterChain,
+    allpass_apply,
+    comb_apply,
+)
+from .bank import (
+    BankState,
+    BiQuadBlock,
+    BiQuadCascade,
+    BiQuadFilterBank,
+    bank_init,
+    bank_process,
+    bank_set_stage,
+)
 
 from .biquad import (
     FilterType,
@@ -20,15 +39,38 @@ from .iir import (
     ModalState,
     ParallelCascadeParams,
     ParallelCascadeState,
+    biquad_apply,
+    biquad_ssm,
+    cascade_apply,
+    interp_trajectory,
     modal_apply,
+    modal_from_df2t,
     modal_init,
     modal_params,
     parallel_cascade_apply,
     parallel_cascade_params,
 )
+from .manager import FilterManager
 from .resample import Resampler, resample
 
 __all__ = [
+    "AllPassFilter",
+    "AllPassFilterChain",
+    "allpass_apply",
+    "comb_apply",
+    "BankState",
+    "BiQuadBlock",
+    "BiQuadCascade",
+    "BiQuadFilterBank",
+    "bank_init",
+    "bank_process",
+    "bank_set_stage",
+    "FilterManager",
+    "biquad_apply",
+    "biquad_ssm",
+    "cascade_apply",
+    "interp_trajectory",
+    "modal_from_df2t",
     "FilterType",
     "biquad_coeffs",
     "biquad_response",

@@ -1,5 +1,7 @@
-"""The modal IIR engine: a time-invariant biquad as two complex one-pole
-recurrences, parallel over time.
+"""The IIR engines: the modal one for a time-invariant biquad (two
+complex one-pole recurrences, parallel over time) and, further down, the
+companion-form ones for coefficients that change from sample to sample
+(:func:`biquad_apply`, :func:`cascade_apply`).
 
 The counterpart of the modal realization in the JAX package's
 ``filters/iir.py``.  The biquad is factored on the host, in float64, into
@@ -42,8 +44,10 @@ import torch
 from ..utils.precision import full_f32
 
 __all__ = ["ModalParams", "ModalState", "modal_params", "modal_init",
-           "modal_apply", "ParallelCascadeParams", "ParallelCascadeState",
-           "parallel_cascade_params", "parallel_cascade_apply"]
+           "modal_apply", "modal_from_df2t", "ParallelCascadeParams",
+           "ParallelCascadeState", "parallel_cascade_params",
+           "parallel_cascade_apply", "biquad_ssm", "biquad_apply",
+           "cascade_apply", "interp_trajectory"]
 
 # chunk length of the Toeplitz branch
 _TOEP_CHUNK = 128
@@ -73,9 +77,9 @@ class ModalState(NamedTuple):
     wi: torch.Tensor
 
 
-def modal_params(coeffs, *, device) -> ModalParams:
+def modal_params(coeffs, *, device, dtype=torch.float32) -> ModalParams:
     """Factor ``[..., 5]`` coefficients ``[b0, b1, b2, a1, a2]`` into poles
-    and numerator FIR, on ``device``.
+    and numerator FIR, ``dtype`` (float32 or float64) on ``device``.
 
     The roots are found in float64 on the host.  Pass the float64 design:
     rounding the coefficients to float32 first costs about 30 dB for
@@ -88,30 +92,28 @@ def modal_params(coeffs, *, device) -> ModalParams:
     p1 = (-a1 + sq) / 2.0
     p2 = (-a1 - sq) / 2.0
 
-    def dev(v):
-        return torch.from_numpy(np.array(v, np.float32)).to(device)
-
-    return ModalParams(b0=dev(b0), d1=dev(d1), d2=dev(d2),
-                       p1r=dev(p1.real), p1i=dev(p1.imag),
-                       p2r=dev(p2.real), p2i=dev(p2.imag))
+    # one copy to the device; the seven fields are slices of it
+    host = np.stack([b0, d1, d2, p1.real, p1.imag, p2.real, p2.imag])
+    return ModalParams(*torch.from_numpy(host).to(dtype).to(device).unbind(0))
 
 
 def modal_init(params: ModalParams, batch_shape=()) -> ModalState:
     """Silence: a zero state for a batch ``batch_shape`` broadcast with the
     parameters' shape, on the parameters' device."""
     shape = torch.broadcast_shapes(tuple(batch_shape), params.b0.shape)
-    return ModalState(*(torch.zeros(shape, device=params.b0.device)
+    return ModalState(*(torch.zeros(shape, dtype=params.b0.dtype,
+                                    device=params.b0.device)
                         for _ in ModalState._fields))
 
 
 def _pole_powers(p, n: int):
-    """``p^0 .. p^(n-1)`` of complex64 poles along a new last axis, as a
+    """``p^0 .. p^(n-1)`` of complex poles along a new last axis, as a
     running product in complex128: one launch where the JAX package's
     float32 doubling takes eight rounds at n = 256, and exact to float32
     rounding."""
     pw = torch.cumprod(p.to(torch.complex128)[..., None].expand(
         *p.shape, n - 1), dim=-1)
-    return torch.cat([torch.ones_like(pw[..., :1]), pw], -1).to(torch.complex64)
+    return torch.cat([torch.ones_like(pw[..., :1]), pw], -1).to(p.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -138,7 +140,7 @@ def _toeplitz(pw, n: int):
 
 
 def _cpx_affine_scan(pw, v, s0):
-    """Inclusive scan of ``s[n] = p s[n-1] + v[n]`` (complex64) along the
+    """Inclusive scan of ``s[n] = p s[n-1] + v[n]`` (complex) along the
     last axis of ``v``, for a pole ``p`` constant in time, from the states
     ``s0`` (the batch's shape): the whole trajectory.  ``pw [..., T + 1]``
     holds ``p^0 .. p^T`` and broadcasts against ``v``.
@@ -250,7 +252,7 @@ def modal_apply(x: torch.Tensor, params: ModalParams,
         t, w = from_kbt(t), from_kbt(w)
     else:
         pw = _pole_powers(poles, T + 1)
-        t = _cpx_affine_scan(pw[0], v.to(torch.complex64), t0)
+        t = _cpx_affine_scan(pw[0], v.to(poles.dtype), t0)
         w = _cpx_affine_scan(pw[1], t, w0)
     y = torch.addcmul(w.real, params.b0[..., None], xb)
     # the six state leaves in one copy; each is a contiguous slice of it
@@ -355,3 +357,304 @@ def parallel_cascade_apply(x: torch.Tensor, params: ParallelCascadeParams,
     y = params.c * x + (rr * s.real - ri * s.imag).sum(0)
     last = torch.stack([s.real[..., -1], s.imag[..., -1]])
     return y, ParallelCascadeState(*last.unbind(0))
+
+
+def modal_from_df2t(params: ModalParams, w_state: torch.Tensor) -> ModalState:
+    """The :class:`ModalState` whose zero-input response equals that of the
+    DF2T registers ``w_state [..., 2]``, so a stream changes realization
+    (at the end of a coefficient ramp) without a click.
+
+    The DF2T free decay is ``y[n] = c1 p1^n + c2 p2^n`` with ``y[0] = w0``
+    and ``y[1] = -a1 w0 + w1``; the modal one, with the FIR history at
+    zero, is ``Re(alpha p1^n + beta p2^n)`` with ``alpha = T0 p1^2 / (p1 -
+    p2)`` and ``beta = p2 W0 - T0 p1 p2 / (p1 - p2)``.  A complex pair
+    takes ``alpha = 2 c1, beta = 0``; real distinct poles ``alpha = c1,
+    beta = c2``; a repeated pole, ``p2 == 0`` and all-zero poles their
+    limits."""
+    w0, w1 = w_state[..., 0], w_state[..., 1]
+    p1 = torch.complex(params.p1r, params.p1i)
+    p2 = torch.complex(params.p2r, params.p2i)
+    a1 = -(p1 + p2).real
+    y0 = w0
+    y1 = -a1 * w0 + w1
+
+    tol = 1e-6
+    one = torch.ones_like(p1)
+    dp = p1 - p2
+    dp_safe = torch.where(dp.abs() < tol, one, dp)
+    p1_safe = torch.where(p1.abs() < tol, one, p1)
+    p2_safe = torch.where(p2.abs() < tol, one, p2)
+    c1 = (y1 - p2 * y0) / dp_safe
+    c2 = (y1 - p1 * y0) / -dp_safe
+
+    is_cplx = params.p1i.abs() > 0
+    # a complex-conjugate pair
+    T0_c = 2.0 * c1 * dp / (p1_safe * p1_safe)
+    W0_c = 2.0 * c1 / p1_safe
+    # real distinct poles
+    T0_r = c1 * dp / (p1_safe * p1_safe)
+    W0_r = c2 / p2_safe + c1 / p1_safe
+    # a repeated real pole p: y = (g0 + g1 n) p^n
+    p = params.p1r
+    prs = torch.where(p.abs() < tol, torch.ones_like(p), p)
+    g1 = y1 / prs - y0
+    T0_rep = (g1 / prs).to(p1.dtype)
+    W0_rep = ((y0 - g1) / prs).to(p1.dtype)
+    # p2 == 0 (a one-pole filter): w1 is 0 by structure, y decays as p1^n
+    T0_z = (y0 / p1_safe).to(p1.dtype)
+
+    near_rep = ~is_cplx & (dp.abs() < tol)
+    T0 = torch.where(is_cplx, T0_c, torch.where(near_rep, T0_rep, T0_r))
+    W0 = torch.where(is_cplx, W0_c, torch.where(near_rep, W0_rep, W0_r))
+    p2_zero = p2.abs() < tol
+    T0 = torch.where(p2_zero, T0_z, T0)
+    W0 = torch.where(p2_zero, torch.zeros_like(W0), W0)
+    all_zero = p1.abs() < tol
+    T0 = torch.where(all_zero, torch.zeros_like(T0), T0)
+    W0 = torch.where(all_zero, torch.zeros_like(W0), W0)
+    z = torch.zeros_like(T0.real)
+    return ModalState(x1=z, x2=z, tr=T0.real, ti=T0.imag,
+                      wr=W0.real, wi=W0.imag)
+
+
+# ---- the companion-form engines: per-sample coefficients -----------------------
+#
+# DF2T  y[n] = b0 x[n] + w0[n-1],  w0[n] = b1 x[n] - a1 y[n] + w1[n-1],
+# w1[n] = b2 x[n] - a2 y[n]  is the affine recurrence  s[n] = A s[n-1] + B
+# x[n]  on  s = [w0, w1]  with  A = [[-a1, 1], [-a2, 0]],  B = [b1 - a1 b0,
+# b2 - a2 b0]  and  y[n] = b0 x[n] + s[n-1][0].  Every coefficient may
+# change from sample to sample (a click-free retarget), where no pole
+# factorization holds.
+
+def biquad_ssm(coeffs: torch.Tensor):
+    """``[..., 5]`` coefficients as the state-space form ``(A [..., 2, 2],
+    B [..., 2], b0 [...])``."""
+    b0, b1, b2, a1, a2 = coeffs.unbind(-1)
+    A = torch.stack([torch.stack([-a1, torch.ones_like(a1)], -1),
+                     torch.stack([-a2, torch.zeros_like(a1)], -1)], -2)
+    return A, torch.stack([b1 - a1 * b0, b2 - a2 * b0], -1), b0
+
+
+def _coef_planes(coeffs: torch.Tensor, time_varying: bool):
+    """Five planes ``[..., T]`` (per-sample) or ``[..., 1]`` (static), time
+    last, that broadcast from the right against ``x [..., T]``."""
+    if time_varying:
+        return coeffs.unbind(-1)
+    return tuple(c[..., None] for c in coeffs.unbind(-1))
+
+
+def _apply_scan(x, coeffs, state, time_varying: bool):
+    """The sequential engine: the literal DF2T tick, one sample after the
+    other, in a Python loop over T.  It is the correctness anchor, for
+    tests and tiny blocks: a dozen launches a sample on a card."""
+    planes = _coef_planes(coeffs, time_varying)
+    batch = torch.broadcast_shapes(x.shape[:-1], planes[0].shape[:-1])
+    w0 = state[..., 0].expand(batch)
+    w1 = state[..., 1].expand(batch)
+    ys = []
+    for n in range(x.shape[-1]):
+        b0, b1, b2, a1, a2 = (p[..., n if time_varying else 0]
+                              for p in planes)
+        xn = x[..., n]
+        y = b0 * xn + w0
+        w0, w1 = b1 * xn - a1 * y + w1, b2 * xn - a2 * y
+        ys.append(y)
+    return torch.stack(ys, -1), torch.stack([w0, w1], -1)
+
+
+def _scan_maps(E: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan of affine 2 x 2 maps along the last axis.
+
+    ``E [2, 3, ..., T]`` holds a map a sample as the top two rows of ``[[A,
+    v], [0, 1]]``: ``E[i, k]`` is ``A[i, k]`` for ``k < 2`` and ``v[i]`` for
+    ``k = 2``.  Out comes, for every ``n``, the map of samples ``0 .. n``
+    composed, ``(A, v) <- (A_n A_before, A_n v_before + v_n)``.
+
+    Hillis-Steele doubling: log2(T) passes ``E[n] <- E[n] o E[n - d]``, all
+    six planes at once, three launches a pass.  The passes ping-pong
+    between two buffers that hold ``Z`` identity maps (the largest stride)
+    before the ``T`` samples, so the element ``d`` before sample ``n < d``
+    is the identity."""
+    T = E.shape[-1]
+    strides, _ = _doubling_strides(T, E.device)
+    if not strides:
+        return E
+    Z = strides[-1]
+    bufs = [E.new_zeros(E.shape[:-1] + (Z + T,)) for _ in range(2)]
+    for b in bufs:
+        b[0, 0, ..., :Z] = 1.0
+        b[1, 1, ..., :Z] = 1.0
+    tails = [b.narrow(-1, Z, T) for b in bufs]
+    tails[0].copy_(E)
+    for k, d in enumerate(strides):
+        g, out = tails[k % 2], tails[1 - k % 2]
+        f = bufs[k % 2].narrow(-1, Z - d, T)
+        # out[i, k] = g[i, 0] f[0, k] + g[i, 1] f[1, k] (+ g[i, 2], k = 2)
+        torch.mul(g[:, 0, None], f[None, 0], out=out)
+        out.addcmul_(g[:, 1, None], f[None, 1])
+        out[:, 2].add_(g[:, 2])
+    return tails[len(strides) % 2]
+
+
+def _apply_assoc(x, coeffs, state, time_varying: bool, dtype, chunk=None):
+    """The parallel engine: the scan of the affine maps, computed in
+    ``dtype`` and rounded to ``x``'s.
+
+    One flat scan over T.  ``chunk = K`` takes the JAX package's two levels
+    instead (scans within chunks of K samples, then a scan of the chunks'
+    whole maps, by doubling too, for the state that enters each chunk).
+    No engine asks for them: in float32 they gain 0 to 2 dB against
+    float64 at K = 128 and nothing in float64, for more launches; the
+    tests keep that comparison."""
+    T = x.shape[-1]
+    b0, b1, b2, a1, a2 = (p.to(dtype) for p in
+                          _coef_planes(coeffs, time_varying))
+    xd = x.to(dtype)
+    v1 = (b1 - a1 * b0) * xd
+    v2 = (b2 - a2 * b0) * xd
+    full = v1.shape
+    batch = full[:-1]
+    K = T if chunk is None else min(chunk, T)
+    nc = -(-T // K)
+    E = x.new_zeros((2, 3) + batch + (nc * K,), dtype=dtype)
+    # beyond T the identity: A = I, v = 0
+    E[0, 0, ..., T:] = 1.0
+    E[1, 1, ..., T:] = 1.0
+    E[0, 0, ..., :T] = -a1
+    E[0, 1, ..., :T] = 1.0
+    E[1, 0, ..., :T] = -a2
+    E[0, 2, ..., :T] = v1
+    E[1, 2, ..., :T] = v2
+    s0 = torch.stack([state[..., 0].expand(batch),
+                      state[..., 1].expand(batch)]).to(dtype)   # [2, ...]
+    M = _scan_maps(E.reshape((2, 3) + batch + (nc, K)))
+    if nc > 1:
+        # the state that enters chunk m: the chunks' maps composed up to
+        # m - 1, applied to s0
+        tot = _scan_maps(M[..., -1])                          # [2, 3, .., nc]
+        into = tot[:, 0] * s0[0, ..., None] + tot[:, 1] * s0[1, ..., None] \
+            + tot[:, 2]
+        sin = torch.cat([s0[..., None], into[..., :-1]], -1)   # [2, .., nc]
+    else:
+        sin = s0[..., None]
+    s = M[:, 0] * sin[0, ..., None] + M[:, 1] * sin[1, ..., None] + M[:, 2]
+    s = s.reshape((2,) + batch + (nc * K,))
+    w0_prev = torch.cat([s0[0, ..., None], s[0, ..., :T - 1]], -1)
+    y = b0 * xd + w0_prev
+    return y.to(x.dtype), s[..., T - 1].movedim(0, -1).to(x.dtype)
+
+
+def _coeff_tensor(coeffs, device) -> torch.Tensor:
+    """Coefficients as a tensor on ``device``; host values keep float64."""
+    if isinstance(coeffs, torch.Tensor):
+        return coeffs.to(device)
+    return torch.from_numpy(np.array(coeffs, np.float64)).to(device)
+
+
+def biquad_apply(x: torch.Tensor, coeffs, state=None, engine: str = "auto"):
+    """One biquad over ``x [..., T]`` (float32 or float64): ``(y,
+    state')``.
+
+    ``coeffs`` is ``[..., 5]`` (static), ``[..., T, 5]`` (one set a sample,
+    as :func:`interp_trajectory` makes them) or a :class:`ModalParams`.
+    ``engine``:
+
+    * ``"auto"``: modal for static coefficients given on the host (numpy,
+      a list: the float64 design, whose poles are found on the host); the
+      companion scan ``"assoc"`` for a trajectory, and for static
+      coefficients that are already a tensor;
+    * ``"modal"``: the pole-factored engine (static coefficients only);
+    * ``"assoc"``: the companion scan in ``x``'s dtype;
+    * ``"assoc_dw"``: the companion scan in float64 on the trajectory as
+      given (pass it in float64), the output rounded to ``x``'s dtype.  The name is the JAX package's, whose engine carries
+      pairs of float32 because its device has no float64; here the card
+      has, and float64 meets the same bar (poles within 1e-4 of the unit
+      circle at >= 130 dB against a float64 per-sample loop);
+    * ``"scan"``: the sequential DF2T tick, the correctness anchor.
+
+    The state is ``[..., 2]`` DF2T registers in ``x``'s dtype for the
+    companion engines and a :class:`ModalState` for modal: pass back what
+    came out."""
+    if isinstance(coeffs, ModalParams):
+        if engine not in ("auto", "modal"):
+            raise ValueError("ModalParams requires the modal engine")
+        return modal_apply(x, coeffs, state)
+    shape = tuple(np.shape(coeffs))
+    time_varying = len(shape) == x.dim() + 1 and shape[-2] == x.shape[-1]
+    if engine == "auto":
+        host_given = not isinstance(coeffs, torch.Tensor)
+        engine = "modal" if host_given and not time_varying else "assoc"
+    if engine == "modal":
+        if time_varying:
+            raise ValueError("modal engine requires time-invariant coeffs")
+        host = (coeffs.detach().cpu().numpy()
+                if isinstance(coeffs, torch.Tensor) else coeffs)
+        return modal_apply(x, modal_params(host, device=x.device,
+                                           dtype=x.dtype), state)
+    if engine not in ("assoc", "assoc_dw", "scan"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "assoc_dw" and not time_varying:
+        raise ValueError("assoc_dw requires a [..., T, 5] trajectory")
+    c = _coeff_tensor(coeffs, x.device)
+    if state is None:
+        batch = torch.broadcast_shapes(
+            x.shape[:-1], c.shape[:-2] if time_varying else c.shape[:-1])
+        state = x.new_zeros(batch + (2,))
+    if engine == "assoc_dw":
+        return _apply_assoc(x, c, state, True, torch.float64)
+    if engine == "assoc":
+        return _apply_assoc(x, c, state, time_varying, x.dtype)
+    return _apply_scan(x, c.to(x.dtype), state, time_varying)
+
+
+def cascade_apply(x: torch.Tensor, coeffs, states=None, engine: str = "auto",
+                  systolic: bool = False):
+    """A serial biquad cascade: the stages ``coeffs [S, ..., 5]`` (or a
+    :class:`ModalParams` with S leading) one after the other: ``(y,
+    states')``, a list of one state a stage.
+
+    ``engine="parallel"`` (or a :class:`ParallelCascadeParams`) runs the
+    whole static cascade in its partial-fraction form as one batched scan;
+    it raises ``ValueError`` where that form is ill-conditioned.
+
+    ``systolic=True`` gives every stage the previous output of the stage
+    before it: the serial cascade with one sample of delay between stages,
+    the output ``S - 1`` samples late."""
+    if engine == "parallel" or isinstance(coeffs, ParallelCascadeParams):
+        if systolic:
+            raise ValueError("systolic mode is a serial-form semantic")
+        params = (coeffs if isinstance(coeffs, ParallelCascadeParams)
+                  else parallel_cascade_params(coeffs, device=x.device))
+        return parallel_cascade_apply(x, params, states)
+    modal = isinstance(coeffs, ModalParams)
+    S = coeffs.b0.shape[0] if modal else np.shape(coeffs)[0]
+    if states is None:
+        states = [None] * S
+    y, new_states = x, []
+    for i in range(S):
+        if systolic and i > 0:
+            y = torch.cat([torch.zeros_like(y[..., :1]), y[..., :-1]], -1)
+        ci = ModalParams(*(f[i] for f in coeffs)) if modal else coeffs[i]
+        y, s = biquad_apply(y, ci, states[i], engine=engine)
+        new_states.append(s)
+    return y, new_states
+
+
+def interp_trajectory(current, targets, mul, dec, nframes: int, *, device):
+    """The coefficients of every sample of one block under the shared
+    interpolation controller: ``(coeffs [..., nframes, 5], mul')`` on
+    ``device``, in ``targets``' dtype (float64 for host values).
+
+    ``diffs = targets - current``, with ``current`` the coefficients when
+    the target was set; sample ``n`` uses ``targets - mul_n diffs`` with
+    ``mul_0 = mul`` (the value entering the block) and ``mul_{n+1} =
+    max(mul_n - dec, 0)``: one scalar drives all five coefficients, so they
+    land together, and the step comes after each processed sample."""
+    targets = _coeff_tensor(targets, device)
+    kw = {"dtype": targets.dtype, "device": targets.device}
+    diffs = targets - _coeff_tensor(current, device).to(targets.dtype)
+    mul, dec = torch.as_tensor(mul, **kw), torch.as_tensor(dec, **kw)
+    n = torch.arange(nframes, **kw)
+    muls = torch.clamp(mul - dec * n, min=0.0)
+    coeffs = targets[..., None, :] - muls[:, None] * diffs[..., None, :]
+    return coeffs, torch.clamp(mul - dec * nframes, min=0.0)

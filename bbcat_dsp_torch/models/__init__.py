@@ -1,5 +1,5 @@
 """Composed stream-processing models: the binaural renderer, the EQ and
-delay pipeline and the mixdown pipeline."""
+delay pipeline, the mixdown pipeline and the Schroeder reverb."""
 
 from .binaural import (
     BinauralRenderer,
@@ -8,7 +8,8 @@ from .binaural import (
     binaural_step,
 )
 from .pipeline import EQDelayPipeline, EQDelayState, MixdownPipeline
+from .reverb import SchroederReverb
 
 __all__ = ["BinauralRenderer", "BinauralState", "binaural_init",
            "binaural_step", "EQDelayPipeline", "EQDelayState",
-           "MixdownPipeline"]
+           "MixdownPipeline", "SchroederReverb"]

@@ -4,14 +4,16 @@
 and ``NonUniformState``, :func:`block_state_from_jax` a ``BlockConvolver``'s
 ``H`` and ``ConvolverState`` (:func:`matrix_state_from_jax` a
 ``MatrixConvolver``'s), :func:`eq_delay_state_from_jax` an
-``EQDelayPipeline``'s ``EQDelayState``, with every leaf already a numpy array (for
+``EQDelayPipeline``'s ``EQDelayState``, :func:`bank_state_from_jax` a
+filter bank's ``BankState``, with every leaf already a numpy array (for
 example ``jax.tree.map(np.asarray, conv.state)``), and each returns the
 port's tensors on ``device``, so a stream started in one package continues
 in the other.  A two-level stream crosses at a super-block boundary: the
 small-block path's partly filled super-block (``_sb_buf``, ``_sb_fill``) is
-not part of the state.  Only the standard spectral layout crosses: a
+not part of the state.  Only the standard spectral layout crosses here: a
 permuted-layout spectrum (``r * (n/r/2 + 1)`` bins instead of ``n/2 + 1``)
-is refused.
+is refused; a state file of that layout is converted when it is read
+(:mod:`~bbcat_dsp_torch.utils.checkpoint`).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from ..convolve.fft import spectral_nbins
 from ..convolve.matrix import filter_from_planes
 from ..convolve.nonuniform import NonUniformState
 from ..buffers.ring import Ring
+from ..filters.bank import BankState
 from ..filters.iir import ModalParams, ModalState, ParallelCascadeState
 from ..loudness.itu1770 import MeterState
 from ..models.binaural import BinauralState
@@ -31,7 +34,8 @@ from ..models.pipeline import EQDelayState
 
 __all__ = ["from_jax_arrays", "block_state_from_jax", "matrix_state_from_jax",
            "modal_from_jax", "meter_state_from_jax", "binaural_state_from_jax",
-           "ring_from_jax", "eq_delay_state_from_jax", "to_numpy"]
+           "ring_from_jax", "eq_delay_state_from_jax", "bank_state_from_jax",
+           "bank_state_to_jax", "to_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -159,3 +163,35 @@ def to_numpy(tree):
         leaves = [to_numpy(t) for t in tree]
         return type(tree)(*leaves) if hasattr(tree, "_fields") else tuple(leaves)
     return tree
+
+
+def bank_state_from_jax(state, *, device) -> BankState:
+    """A ``BankState`` of numpy leaves as the port's on ``device``: the JAX
+    package's pairs of float32 planes (``targets`` + ``targets_lo``,
+    ``origins`` + ``origins_lo``) summed into float64."""
+
+    def f64(hi, lo):
+        return torch.from_numpy(np.asarray(hi, np.float64)
+                                + np.asarray(lo, np.float64)).to(device)
+
+    return BankState(targets=f64(state.targets, state.targets_lo),
+                     origins=f64(state.origins, state.origins_lo),
+                     mul=_tensor(state.mul, device),
+                     dec=_tensor(state.dec, device),
+                     w=_tensor(state.w, device))
+
+
+def bank_state_to_jax(state: BankState) -> dict:
+    """The port's ``BankState`` as the JAX package's seven numpy leaves by
+    field name, in its field order: each float64 array ``a`` as the pair
+    ``hi = float32(a)``, ``lo = float32(a - hi)``."""
+
+    def split(a):
+        a = a.detach().cpu().numpy()
+        hi = a.astype(np.float32)
+        return hi, (a - hi).astype(np.float32)
+
+    (t_hi, t_lo), (o_hi, o_lo) = split(state.targets), split(state.origins)
+    return {"targets": t_hi, "origins": o_hi, "mul": to_numpy(state.mul),
+            "dec": to_numpy(state.dec), "w": to_numpy(state.w),
+            "targets_lo": t_lo, "origins_lo": o_lo}

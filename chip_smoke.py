@@ -73,6 +73,30 @@ Phases, each of which exits nonzero on failure:
    turns) with its device-only time and a profile.  This path runs no
    kernel of the port, and the counts show it.
 
+11. the live-EQ path and what sits on the same scans, none of which runs
+   a kernel of the port (the counts show it): ``BiQuadFilterBank`` at 64
+   channels x 8 stages, block 512, over 200 distinct blocks, stage 3
+   retargeted through ``set_filter(..., interp_time=0.05)`` before block
+   100 and again in the middle of that ramp, held on channels 0, 31 and 63
+   against a float64 per-sample DF2T with the interpolation contract at >=
+   90 dB, the ramp window click-free; ``FilterManager`` with four named
+   cascades of 2 to 8 stages over 56 of 64 channels against float64
+   ``lfilter``; ``SchroederReverb`` at 2 and at 64 channels over 100 blocks
+   against float64 comb and all-pass recurrences; ``offline_convolve`` of
+   64 channels x 32768 taps x 10.24 s against ``fftconvolve`` (>= 90 dB)
+   and the streamed two-level engine (>= 110 dB).  Each path's ms a block
+   back to back (median of three turns), device-only time, real-time
+   factor and profile; the bank's ramp block and steady block apart; one
+   stage's scan in float32 and float64, flat and in two levels;
+12. state files: the headline two-level engine, a ``BlockConvolver``, the
+   binaural renderer with its meter, a 128-channel meter, the config #2
+   pipeline and the bank in the middle of a ramp, each stopped half-way,
+   written with ``save_state``, read into a fresh engine with
+   ``load_state`` and continued through the path's kernels: >= 110 dB
+   against the uninterrupted stream, readouts equal.  Then a file that the
+   JAX package wrote (``tests/data/jax_state_v4.pkl``), read here without
+   JAX, continued against that package's own output (>= 110 dB).
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches, error, times and bound.
 """
@@ -1440,6 +1464,507 @@ def main() -> None:
     print("config #2 runs no kernel of the port: the JAX path reaches no "
           "Pallas kernel either; launches and plain calls stayed zero",
           flush=True)
+
+    # ---- 11. live EQ, named cascades, reverb, offline convolution -----------------
+    from scipy.signal import lfilter
+
+    from bbcat_dsp_torch import (
+        BiQuadFilterBank,
+        FilterManager,
+        SchroederReverb,
+        offline_convolve,
+    )
+    from bbcat_dsp_torch.filters import biquad_apply
+
+    torch.cuda.synchronize()
+    ops_hook.reset_counts()
+    S11, NBLK11, RAMP_AT, RAMP_S = 8, 200, 100, 0.05
+    T11 = NBLK11 * BLOCK
+
+    def stage_design(i, gain=None):
+        """Stage ``i``'s PEQ: 125 Hz x 2^i, +/- 4 dB alternating."""
+        g = 4.0 * (-1.0) ** i if gain is None else gain
+        return FilterType.PEQ, 125.0 * 2.0 ** i, g
+
+    def new_bank():
+        bank = BiQuadFilterBank(S11, C, fs=FS, device=dev)
+        for i in range(S11):
+            ftype, freq, g = stage_design(i)
+            bank.set_filter(i, ftype, freq, gain=g)
+        return bank
+
+    # the retargets of stage 3: a ramp of 2400 samples (4.7 blocks) before
+    # block 100, a second target set 1024 samples into it
+    retargets = {RAMP_AT: (3, -8.0), RAMP_AT + 2: (3, 6.0)}
+
+    def ramp64(x, c_from, c_to, mul, dec, w):
+        """The float64 per-sample DF2T tick with the interpolation
+        contract: sample ``n`` runs on ``c_to - mul (c_to - c_from)``, and
+        ``mul`` steps down by ``dec`` (a float32 value, as the bank rounds
+        it) after each sample, not below 0.  ``x [K, T]``, ``w [K, 2]``:
+        ``(y, w', mul')``."""
+        y = np.empty_like(x)
+        w0, w1 = w[:, 0].copy(), w[:, 1].copy()
+        diff = c_to - c_from
+        for n in range(x.shape[-1]):
+            b0, b1, b2, a1, a2 = c_to - mul * diff
+            yn = b0 * x[:, n] + w0
+            w0 = b1 * x[:, n] - a1 * yn + w1
+            w1 = b2 * x[:, n] - a2 * yn
+            y[:, n] = yn
+            mul = max(mul - dec, 0.0)
+        return y, np.stack([w0, w1], -1), mul
+
+    def bank64(x):
+        """The bank's stream in float64 on ``x [K, T]``: fixed stages
+        through ``lfilter``, stage 3 sample by sample from its first
+        retarget until its last ramp has landed."""
+        y = np.asarray(x, np.float64)
+        for i in range(S11):
+            c = biquad_coeffs(*stage_design(i)[:2], FS, gain=stage_design(i)[2])
+            if i != 3:
+                y = lfilter64(y, c)
+                continue
+            t0 = RAMP_AT * BLOCK
+            head, zf = lfilter(c[:3], np.r_[1.0, c[3:]], y[:, :t0], axis=-1,
+                               zi=np.zeros((y.shape[0], 2)))
+            parts, w, cur, mul, dec, tgt = [head], zf, c, 0.0, 0.0, c
+            marks = sorted(retargets) + [NBLK11]
+            for blk, nxt in zip(marks[:-1], marks[1:]):
+                # a new target: the ramp starts from the coefficients in
+                # effect now
+                cur = tgt - mul * (tgt - cur)
+                tgt = biquad_coeffs(*stage_design(3)[:2], FS,
+                                    gain=retargets[blk][1])
+                mul, dec = 1.0, float(np.float32(1.0 / (RAMP_S * FS)))
+                n_ramp = min((nxt - blk) * BLOCK, int(RAMP_S * FS) + 2)
+                a = blk * BLOCK
+                seg, w, mul = ramp64(y[:, a:a + n_ramp], cur, tgt, mul, dec, w)
+                parts.append(seg)
+                if a + n_ramp < nxt * BLOCK:      # landed: fixed again
+                    seg, w = lfilter(tgt[:3], np.r_[1.0, tgt[3:]],
+                                     y[:, a + n_ramp:nxt * BLOCK], axis=-1,
+                                     zi=w)
+                    parts.append(seg)
+            y = np.concatenate(parts, -1)
+        return y
+
+    x11 = rng.standard_normal((C, T11)).astype(np.float32)
+    x11d = torch.from_numpy(x11).to(dev)
+    bank = new_bank()
+    ys, engines = [], []
+    for k in range(NBLK11):
+        if k in retargets:
+            stage, g = retargets[k]
+            bank.set_filter(stage, *stage_design(stage)[:2], gain=g,
+                            interp_time=RAMP_S)
+        ys.append(bank.process(x11d[:, k * BLOCK:(k + 1) * BLOCK]))
+        engines.append("ramp" if bank._modal is None else "modal")
+    y = torch.cat(ys, -1).cpu().numpy()
+    if y.shape != x11.shape or not np.all(np.isfinite(y)):
+        fail(f"bank: output shape {y.shape} or non-finite values")
+    n_ramp_blocks = engines.count("ramp")
+    want_ramp = 2 + -(-int(RAMP_S * FS) // BLOCK) - 1      # 6 at block 512
+    # blocks 100 .. 106 run the ramp engine (the second ramp lands 3424
+    # samples after the first began, inside block 106, which ends on the
+    # modal engine); the first block too, and hands over at once
+    if engines[0] != "modal" or n_ramp_blocks != want_ramp or \
+            set(engines[RAMP_AT:RAMP_AT + want_ramp]) != {"ramp"}:
+        fail(f"bank: ramp engine on blocks "
+             f"{[k for k, e in enumerate(engines) if e == 'ramp']}")
+    ref = bank64(x11[list(CHECKED)])
+    for j, ch in enumerate(CHECKED):
+        s = snr_db(ref[j], y[ch])
+        win = slice(RAMP_AT * BLOCK, (RAMP_AT + 8) * BLOCK)
+        s_win = snr_db(ref[j, win], y[ch, win])
+        print(f"BiQuadFilterBank {C} ch x {S11} stages, {NBLK11} blocks, "
+              f"channel {ch}: {s:.2f} dB against the float64 per-sample "
+              f"DF2T, {s_win:.2f} dB over the ramps' 8 blocks", flush=True)
+        if not min(s, s_win) >= 90.0:
+            fail(f"bank channel {ch}: {min(s, s_win):.2f} dB < 90")
+        if not click_free(y[ch, win]):
+            fail(f"bank channel {ch}: a click in the ramp window")
+    if float(bank.state.mul.abs().max()) != 0.0:
+        fail(f"bank: mul {bank.state.mul.tolist()} after the ramps")
+
+    def time_path(label, step, nblk: int, audio_ms: float, prof_blocks: int):
+        """``step(i)`` over ``nblk`` blocks: ms a block back to back (the
+        median of three turns and their spread), the host's time to
+        enqueue a block, device-only, the real-time factor, and a profile
+        (launches a block)."""
+        for i in range(min(nblk, 4)):
+            step(i)
+        turns = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for i in range(nblk):
+                step(i)
+            b.record()
+            torch.cuda.synchronize()
+            turns.append(a.elapsed_time(b) / nblk)
+        turns.sort()
+        # the host's share: the time to enqueue a block, the card not
+        # waited for
+        t0 = time.perf_counter()
+        for i in range(nblk):
+            step(i)
+        host_ms = (time.perf_counter() - t0) * 1e3 / nblk
+        torch.cuda.synchronize()
+        it = iter(range(10 ** 6))
+        devo = device_ms(lambda: step(next(it) % nblk), 8)
+        print(f"{label}: {turns[1]:.4f} ms a block back to back (median of "
+              f"three turns; {turns[0]:.4f} .. {turns[2]:.4f}), {host_ms:.4f} "
+              f"ms of host time to enqueue it, {devo} device-only median, "
+              f"{audio_ms / turns[1]:.2f} x real time, deadline "
+              f"{audio_ms:.4f} ms ({card})", flush=True)
+        where_time_goes(f"{label} (mean of {prof_blocks} blocks)", step,
+                        prof_blocks)
+
+    def block11(i):
+        return x11d[:, (i % NBLK11) * BLOCK:(i % NBLK11 + 1) * BLOCK]
+
+    time_path(f"BiQuadFilterBank steady block ({C} ch x {S11} stages, modal)",
+              lambda i: bank.process(block11(i)), 48, DEADLINE_MS, 16)
+    params0, state0 = bank._modal[0][0], bank._modal[1][0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        iir.modal_apply(block11(0), params0, state0)
+    host_us = (time.perf_counter() - t0) * 1e6 / 50
+    torch.cuda.synchronize()
+    print(f"modal_apply, one stage over {C} ch x {BLOCK}: {host_us:.1f} us of "
+          f"host time a call ({card})", flush=True)
+    # a ramp that outlasts the measurement: every block is a ramp block
+    bank.set_filter(3, *stage_design(3)[:2], gain=-8.0, interp_time=60.0)
+    time_path(f"BiQuadFilterBank ramp block ({C} ch x {S11} stages, float64 "
+              "scan)", lambda i: bank.process(block11(i)), 48, DEADLINE_MS, 16)
+    if bank._modal is not None:
+        fail("bank: the timed ramp blocks left the ramp engine")
+
+    # one stage's scan alone: float64 against float32, flat against the
+    # JAX package's two levels
+    traj = bank.state.targets[3].expand(1, BLOCK, 5).contiguous()
+    w0 = torch.zeros(C, 2, device=dev)
+    xb11 = block11(0)
+    for label, dtype, chunk in (("float64 flat (assoc_dw)", torch.float64, None),
+                                ("float32 flat (assoc)", torch.float32, None),
+                                ("float64 two-level, chunks of 128",
+                                 torch.float64, 128),
+                                ("float32 two-level, chunks of 128",
+                                 torch.float32, 128)):
+        ms = median_ms(lambda: iir._apply_assoc(xb11, traj, w0, True, dtype,
+                                                  chunk))
+        print(f"one stage's companion scan, {C} ch x {BLOCK}, {label}: "
+              f"{ms:.4f} ms device-only ({card})", flush=True)
+    y64, _ = biquad_apply(xb11, traj, engine="assoc_dw")
+    y32, _ = biquad_apply(xb11, traj.float(), engine="assoc")
+    print(f"  float32 against float64 scan on that block: "
+          f"{snr_db(y64.cpu().numpy(), y32.cpu().numpy()):.2f} dB", flush=True)
+
+    # FilterManager: four named cascades of 2, 4, 6 and 8 stages over 56 of
+    # the 64 channels (every eighth is left unassigned), 24 blocks
+    fm = FilterManager(fs=FS, device=dev)
+    cascades = {name: [(FilterType.PEQ, 150.0 * (i + 1) + 10.0 * n,
+                        3.0 * (-1.0) ** (i + n)) for i in range(n)]
+                for name, n in (("two", 2), ("four", 4), ("six", 6),
+                                ("eight", 8))}
+    for name, stages in cascades.items():
+        fm.define(name, stages)
+    names = list(cascades)
+    assigned = {ch: names[(ch // 2) % 4] for ch in range(C) if ch % 8 != 7}
+    for ch, name in assigned.items():
+        fm.assign(ch, name)
+    nb = 24
+    y = torch.cat([fm.process(block11(k)) for k in range(nb)], -1).cpu().numpy()
+    for ch in (0, 2, 4, 6, 61):
+        ref = x11[ch, :nb * BLOCK].astype(np.float64)
+        for ftype, freq, g in cascades[assigned[ch]]:
+            ref = lfilter64(ref, biquad_coeffs(ftype, freq, FS, gain=g))
+        s = snr_db(ref, y[ch])
+        print(f"FilterManager channel {ch} ({assigned[ch]}): {s:.2f} dB "
+              "against float64 lfilter", flush=True)
+        if not s >= 90.0:
+            fail(f"FilterManager channel {ch}: {s:.2f} dB < 90")
+    for ch in (7, 63):
+        if not np.array_equal(y[ch], x11[ch, :nb * BLOCK]):
+            fail(f"FilterManager: unassigned channel {ch} was touched")
+    time_path(f"FilterManager ({C} ch, cascades of 2/4/6/8 stages)",
+              lambda i: fm.process(block11(i)), 24, DEADLINE_MS, 8)
+
+    # SchroederReverb at 2 and at 64 channels, 100 blocks; 2 channels of
+    # each against the float64 recurrences
+    def lag64(x, d: int, b0: float, bd: float, ad: float):
+        """``y[n] = b0 x[n] + bd x[n-d] - ad y[n-d]`` in float64, every
+        sample from the samples ``d`` before it (``d`` at a time)."""
+        xp, y = np.r_[np.zeros(d), x], np.zeros(x.size + d)
+        for a in range(0, x.size, d):
+            n = min(d, x.size - a)
+            y[d + a:d + a + n] = (b0 * xp[d + a:d + a + n] + bd * xp[a:a + n]
+                                  - ad * y[a:a + n])
+        return y[d:]
+
+    def reverb64(rev, x, chans):
+        """Four combs ``y[n] = x[n] + g y[n-d]`` averaged, three all-passes
+        ``y[n] = c x[n] + x[n-d] - c y[n-d]``, the dry and wet mix."""
+        out = []
+        for c in chans:
+            xc = np.asarray(x[c], np.float64)
+            wet = sum(lag64(xc, ds[c], 1.0, 0.0, -gs[c]) for ds, gs in
+                      zip(rev.comb_delays, rev.comb_gains)) / 4.0
+            for ds in rev.ap_delays:
+                wet = lag64(wet, ds[c], 0.7, 1.0, 0.7)
+            out.append((1.0 - rev.mix) * xc + rev.mix * wet)
+        return np.stack(out)
+
+    nb = 100
+    for nch, chans in ((2, (0, 1)), (C, (0, C - 1))):
+        rev = SchroederReverb(nch, fs=FS, device=dev)
+        y = torch.cat([rev.process_block(block11(k)[:nch]) for k in range(nb)],
+                      -1).cpu().numpy()
+        if y.shape != (nch, nb * BLOCK) or not np.all(np.isfinite(y)):
+            fail(f"reverb {nch} ch: output shape {y.shape} or non-finite")
+        ref = reverb64(rev, x11[:, :nb * BLOCK], chans)
+        for j, ch in enumerate(chans):
+            s = snr_db(ref[j], y[ch])
+            print(f"SchroederReverb {nch} ch, channel {ch}: {s:.2f} dB "
+                  "against float64 recurrences", flush=True)
+            if not s >= 90.0:
+                fail(f"reverb {nch} ch channel {ch}: {s:.2f} dB < 90")
+        time_path(f"SchroederReverb {nch} ch",
+                  lambda i, rev=rev, nch=nch: rev.process_block(
+                      block11(i)[:nch]), 24 if nch == 2 else 6, DEADLINE_MS,
+                  4 if nch == 2 else 2)
+
+    # offline_convolve: the headline IRs over 120 super-blocks (10.24 s)
+    T_OFF = 120 * SB
+    xo = rng.standard_normal((C, T_OFF)).astype(np.float32)
+    xod = torch.from_numpy(xo).to(dev)
+    yo = offline_convolve(xod, irs)
+    torch.cuda.synchronize()
+    if yo.shape != (C, T_OFF) or not bool(torch.isfinite(yo).all()):
+        fail(f"offline_convolve: output shape {tuple(yo.shape)} or non-finite")
+    yo_h = yo.cpu().numpy()
+    for ch in CHECKED:
+        s = snr_db(conv64(xo[ch], irs[ch]), yo_h[ch])
+        print(f"offline_convolve channel {ch}: {s:.2f} dB against "
+              "fftconvolve", flush=True)
+        if not s >= 90.0:
+            fail(f"offline_convolve channel {ch}: {s:.2f} dB < 90")
+    turns = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        offline_convolve(xod, irs)
+        b.record()
+        torch.cuda.synchronize()
+        turns.append(a.elapsed_time(b))
+    turns.sort()
+    print(f"offline_convolve {C} ch x {N} taps x {T_OFF / FS:.2f} s: "
+          f"{turns[1]:.4f} ms a call (median of three; {turns[0]:.4f} .. "
+          f"{turns[2]:.4f}; the IRs' float64 transform included), "
+          f"{1e3 * T_OFF / FS / turns[1]:.2f} x real time ({card})", flush=True)
+    where_time_goes("offline_convolve", lambda i: offline_convolve(xod, irs), 1)
+
+    counts = ops_hook.counts()
+    if any(counts["launches"].values()) or any(counts["plain"].values()):
+        fail(f"phase 11 ran a kernel of the port or a plain version: {counts}")
+    print("phase 11 runs no kernel of the port: the JAX paths reach no Pallas "
+          "kernel either; launches and plain calls stayed zero", flush=True)
+    # and against the streamed two-level engine (its kernels; not a path
+    # of this phase, so its launches are not counted)
+    conv.reset()
+    ys_stream = conv.process(xod).cpu().numpy()
+    s = snr_db(ys_stream, yo_h)
+    print(f"offline_convolve against NonUniformConvolver.process, all {C} "
+          f"channels: {s:.2f} dB", flush=True)
+    if not s >= 110.0:
+        fail(f"offline_convolve against the streamed engine: {s:.2f} dB < 110")
+    del xod, yo, xo, yo_h, ys_stream
+
+    # ---- 12. state files --------------------------------------------------------
+    from bbcat_dsp_torch import load_state, save_state
+
+    tmpdir = tempfile.TemporaryDirectory()
+    ckpt = str(Path(tmpdir.name) / "state.pkl")
+
+    def resumed(label, make, first, second, must, get=None, put=None,
+                readout=None):
+        """A stream in two halves ``first(engine)`` and ``second(engine)``
+        (each a list of output tensors): once uninterrupted; once with the
+        state written to a file after the first half and read into a fresh
+        engine, which runs the second half through the path's kernels.  The
+        joined output must meet the uninterrupted one at >= 110 dB, and
+        ``readout(engine)`` (numbers) must agree to 1e-4."""
+        get = get or (lambda e: e.state)
+        put = put or (lambda e, s: setattr(e, "state", s))
+        whole = make()
+        y_ref = torch.cat(first(whole) + second(whole), -1)
+        a = make()
+        y1 = first(a)
+        save_state(ckpt, get(a))
+        size = Path(ckpt).stat().st_size
+        del a
+        b = make()
+        put(b, load_state(ckpt, like=get(b)))
+        torch.cuda.synchronize()
+        ops_hook.reset_counts()
+        y2 = second(b)
+        torch.cuda.synchronize()
+        check_path(f"resumed {label}", ops_hook.counts(), must)
+        y = torch.cat(y1 + y2, -1)
+        s = snr_db(y_ref.cpu().numpy(), y.cpu().numpy())
+        line = (f"resumed {label}: {s:.2f} dB against the uninterrupted "
+                f"stream, file {size / 1e6:.2f} MB")
+        if y.shape != y_ref.shape or not s >= 110.0:
+            fail(f"resumed {label}: {s:.2f} dB < 110")
+        if readout is not None:
+            want, got = np.asarray(readout(whole)), np.asarray(readout(b))
+            line += f", readouts {got.tolist()} against {want.tolist()}"
+            if not np.allclose(got, want, atol=1e-4):
+                fail(f"resumed {label}: readouts {got} != {want}")
+        print(line, flush=True)
+
+    x12 = randn(C, 16 * SB)
+
+    def sb12(j):
+        return x12[:, j * SB:(j + 1) * SB]
+
+    # the headline two-level engine: 5 super-blocks (the tail's cursor off
+    # 0), then one super-block of small blocks, two whole ones and a render
+    def nu_second(e):
+        ys = [e.process_small_block(sb12(5)[:, i * BLOCK:(i + 1) * BLOCK])
+              for i in range(RATIO)]
+        ys += [e.process_block(sb12(j)) for j in (6, 7)]
+        return ys + [e.process(x12[:, 8 * SB:14 * SB])]
+
+    def put_two_level(e, s):
+        if s.tail.step != 5:
+            fail(f"two-level state read with tail step {s.tail.step}")
+        e.state = s
+
+    resumed("NonUniformConvolver (64 ch x 32768 taps)",
+            lambda: NonUniformConvolver(irs, block=BLOCK, ratio=RATIO,
+                                        device=dev),
+            lambda e: [e.process_block(sb12(j)) for j in range(5)],
+            nu_second, STREAM_KERNELS, put=put_two_level)
+
+    def blk12(k):
+        return x12[:, k * BLOCK:(k + 1) * BLOCK]
+
+    resumed("BlockConvolver (64 ch x 32768 taps)",
+            lambda: BlockConvolver(g1, block=BLOCK, device=dev),
+            lambda e: [e.process_block(blk12(k)) for k in range(37)],
+            lambda e: [e.process_block(blk12(k)) for k in range(37, 48)]
+            + [e.process(x12[:, 48 * BLOCK:96 * BLOCK])], BLOCK_KERNELS)
+
+    # the renderer with its meter, stopped after 75 blocks = 8 x 100 ms,
+    # where the meter's buffer of output not yet metered is empty
+    xr = randn(CI, 150 * BLOCK) * 0.05
+
+    def rend_first(e):
+        ys = [e.process_block(xr[:, k * BLOCK:(k + 1) * BLOCK])
+              for k in range(75)]
+        if e._meter_buf.shape[-1]:
+            fail("binaural: the meter's buffer is not empty at the stop")
+        return ys
+
+    def rend_put(e, s):
+        e.state, e.meter.state = s["renderer"], s["meter"]
+
+    resumed("BinauralRenderer (64 x 2, 1024 taps, EQ) with its meter",
+            lambda: BinauralRenderer(h1, block=BLOCK, eq_stages=[eq], fs=FS,
+                                     device=dev),
+            rend_first,
+            lambda e: [e.process_block(xr[:, k * BLOCK:(k + 1) * BLOCK])
+                       for k in range(75, 150)], MATRIX_KERNELS,
+            get=lambda e: {"renderer": e.state, "meter": e.meter.state},
+            put=rend_put,
+            readout=lambda e: [e.loudness()[k] for k in
+                               ("momentary_lkfs", "integrated_lkfs")])
+
+    xm12 = [randn(C4, T4) * 0.1 for _ in range(6)]
+
+    def meter_run(lo, hi):
+        def go(m):
+            for xi in xm12[lo:hi]:
+                m.process(xi)
+            return [torch.tensor([[m.momentary(), m.short_term(),
+                                   m.integrated()]])]
+        return go
+
+    resumed("LoudnessMeter (128 ch, 6 s)",
+            lambda: LoudnessMeter(C4, FS, device=dev), meter_run(0, 3),
+            meter_run(3, 6), set(),
+            readout=lambda m: [m.momentary(), m.short_term(), m.integrated()])
+
+    resumed("EQDelayPipeline (config #2)",
+            lambda: EQDelayPipeline(eq2, C2, B2, MAX_DELAY, FS, device=dev),
+            lambda e: [e.process_block(x2d[:, i * B2:(i + 1) * B2], steady_d)
+                       for i in range(8)],
+            lambda e: [e.process_block(x2d[:, i * B2:(i + 1) * B2], steady_d)
+                       for i in range(8, NBLK2)], set())
+
+    # the bank, stopped 1024 samples into a ramp of 2400 and continued
+    # through restore(), which derives the rest of the ramp from mul and dec
+    def bank_run(lo, hi):
+        def go(b):
+            ys = []
+            for k in range(lo, hi):
+                if k == 6:
+                    b.set_filter(3, *stage_design(3)[:2], gain=-8.0,
+                                 interp_time=RAMP_S)
+                ys.append(b.process(block11(k)))
+            return ys
+        return go
+
+    resumed(f"BiQuadFilterBank ({C} ch x {S11} stages) in the middle of a "
+            "ramp", new_bank, bank_run(0, 8), bank_run(8, 16), set(),
+            get=lambda b: b.snapshot(), put=lambda b, s: b.restore(s),
+            readout=lambda b: [float(b.state.mul.abs().max()),
+                               float(b._modal is not None),
+                               float(b.state.targets[3, 0])])
+
+    # a file the JAX package wrote (tests/test_torch_checkpoint.py writes it
+    # with that package's save_state): its tree definition and named tuples
+    # are never imported here; the streams continue from its leaves and meet
+    # the JAX package's own output for the same blocks
+    data = Path(__file__).resolve().parent / "tests" / "data"
+    io = np.load(data / "jax_state_v4_io.npz")
+    fx_conv = NonUniformConvolver(io["ir"], block=int(io["block"]),
+                                  ratio=int(io["ratio"]), device=dev)
+    fx_bank = BiQuadFilterBank(2, 2, fs=FS, device=dev)
+    fx = load_state(str(data / "jax_state_v4.pkl"),
+                    like={"bank": fx_bank.state, "conv": fx_conv.state})
+    foreign = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
+               or (m.startswith("bbcat_dsp_")
+                   and not m.startswith("bbcat_dsp_torch"))]
+    if foreign:
+        fail(f"reading the JAX-written file imported {foreign}")
+    fx_conv.state = fx["conv"]
+    fx_bank.restore(fx["bank"])
+    torch.cuda.synchronize()
+    ops_hook.reset_counts()
+    y = torch.stack([fx_conv.process_block(torch.from_numpy(xb).to(dev))
+                     for xb in io["conv_x"]])
+    torch.cuda.synchronize()
+    check_path("resumed from the JAX-written file", ops_hook.counts(),
+               {"fused_head", "rfft_half", "head_mac", "irfft_tail"})
+    s_conv = snr_db(io["conv_y"], y.cpu().numpy())
+    y = torch.stack([fx_bank.process(torch.from_numpy(xb).to(dev))
+                     for xb in io["bank_x"]])
+    s_bank = snr_db(io["bank_y"], y.cpu().numpy())
+    print(f"the JAX-written file (format 4, {len(io['conv_x'])} super-blocks "
+          f"and {len(io['bank_x'])} bank blocks after it), read without JAX: "
+          f"two-level convolver {s_conv:.2f} dB, bank {s_bank:.2f} dB against "
+          "the JAX package's own continuation", flush=True)
+    if not min(s_conv, s_bank) >= 110.0:
+        fail(f"JAX-written file: {min(s_conv, s_bank):.2f} dB < 110")
+    tmpdir.cleanup()
 
     for name in results:
         results[name]["launches"] = sum(c[name] for c in path_launches)
