@@ -22,7 +22,16 @@ The port serves, on an NVIDIA Hopper card and on the CPU:
 - the binaural renderer, the EQ and delay pipeline, the mixdown pipeline
   and the Schroeder reverb (:mod:`~bbcat_dsp_torch.models`);
 - state files that this package and the JAX package both read
-  (:mod:`~bbcat_dsp_torch.utils.checkpoint`).
+  (:mod:`~bbcat_dsp_torch.utils.checkpoint`);
+- sample formats, dither and WAV files on the host
+  (:mod:`~bbcat_dsp_torch.formats`, :mod:`~bbcat_dsp_torch.tools`), SOFA
+  HRTF files (:mod:`~bbcat_dsp_torch.sofa`) and two command-line tools on
+  the card (``python -m bbcat_dsp_torch.tools.convolve_cli``,
+  ``loudness_cli``);
+- the small device-side ops: delay, FIFO and multilayer buffers
+  (:mod:`~bbcat_dsp_torch.buffers`), gain ramps, mixing and 2-D
+  convolution (:mod:`~bbcat_dsp_torch.ops`), running averages and
+  histograms (:mod:`~bbcat_dsp_torch.analysis`).
 
 On the card the convolvers run eight CUDA kernels written for ``sm_90a``
 (``csrc/``); on the CPU the kernels' plain PyTorch versions.  The port
@@ -30,7 +39,21 @@ imports PyTorch and never JAX; the JAX package stays the reference it is
 tested against.
 """
 
-from . import buffers, convolve, filters, formats, loudness, models, ops_hook
+__version__ = "0.1.0"
+
+from . import (
+    analysis,
+    buffers,
+    convolve,
+    filters,
+    formats,
+    loudness,
+    models,
+    ops,
+    ops_hook,
+    sofa,
+    tools,
+)
 from .convolve import (
     BlockConvolver,
     MatrixConvolver,
@@ -46,10 +69,14 @@ from .models import (
     MixdownPipeline,
     SchroederReverb,
 )
+from .register import loaded_versions, register
 from .utils.checkpoint import load_state, save_state
 
-__all__ = ["buffers", "convolve", "filters", "formats", "loudness", "models",
-           "ops_hook", "BlockConvolver", "MatrixConvolver",
+register()
+
+__all__ = ["analysis", "buffers", "convolve", "filters", "formats",
+           "loudness", "models", "ops", "ops_hook", "sofa", "tools",
+           "register", "loaded_versions", "BlockConvolver", "MatrixConvolver",
            "NonUniformConvolver", "NonUniformState", "LoudnessMeter",
            "BinauralRenderer", "EQDelayPipeline", "MixdownPipeline",
            "SchroederReverb", "BiQuadFilterBank", "FilterManager",

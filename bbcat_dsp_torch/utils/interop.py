@@ -5,7 +5,10 @@ and ``NonUniformState``, :func:`block_state_from_jax` a ``BlockConvolver``'s
 ``H`` and ``ConvolverState`` (:func:`matrix_state_from_jax` a
 ``MatrixConvolver``'s), :func:`eq_delay_state_from_jax` an
 ``EQDelayPipeline``'s ``EQDelayState``, :func:`bank_state_from_jax` a
-filter bank's ``BankState``, with every leaf already a numpy array (for
+filter bank's ``BankState``, and the small ops' objects (the delay and
+ring buffers, the multilayer buffer, the running average's and the
+histogram's states, the interpolators), with every leaf already a numpy
+array (for
 example ``jax.tree.map(np.asarray, conv.state)``), and each returns the
 port's tensors on ``device``, so a stream started in one package continues
 in the other.  A two-level stream crosses at a super-block boundary: the
@@ -25,17 +28,24 @@ from ..convolve.block import ConvolverState
 from ..convolve.fft import spectral_nbins
 from ..convolve.matrix import filter_from_planes
 from ..convolve.nonuniform import NonUniformState
+from ..analysis import HistogramState, RunningAverageState
+from ..buffers.delay import SoundDelayBuffer, SoundRingBuffer
+from ..buffers.multilayer import MultilayerBuffer
 from ..buffers.ring import Ring
 from ..filters.bank import BankState
 from ..filters.iir import ModalParams, ModalState, ParallelCascadeState
 from ..loudness.itu1770 import MeterState
 from ..models.binaural import BinauralState
 from ..models.pipeline import EQDelayState
+from ..ops.interpolator import ComplexInterpolator, Interpolator
 
 __all__ = ["from_jax_arrays", "block_state_from_jax", "matrix_state_from_jax",
            "modal_from_jax", "meter_state_from_jax", "binaural_state_from_jax",
            "ring_from_jax", "eq_delay_state_from_jax", "bank_state_from_jax",
-           "bank_state_to_jax", "to_numpy"]
+           "bank_state_to_jax", "to_numpy", "delay_buffer_from_jax",
+           "multilayer_from_jax", "running_average_state_from_jax",
+           "histogram_state_from_jax", "interpolator_from_jax",
+           "complex_interpolator_from_jax"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -195,3 +205,57 @@ def bank_state_to_jax(state: BankState) -> dict:
     return {"targets": t_hi, "origins": o_hi, "mul": to_numpy(state.mul),
             "dec": to_numpy(state.dec), "w": to_numpy(state.w),
             "targets_lo": t_lo, "origins_lo": o_lo}
+
+
+def delay_buffer_from_jax(ring, readpos=None, *, device):
+    """A ``SoundDelayBuffer`` from the JAX one's ``ring`` (``data [C, L]``,
+    ``writepos``), or with ``readpos`` a ``SoundRingBuffer``, continuing
+    on ``device`` where the JAX object stopped."""
+    data = np.asarray(ring.data)
+    if readpos is None:
+        buf = SoundDelayBuffer(data.shape[0], data.shape[-1], device=device)
+    else:
+        buf = SoundRingBuffer(data.shape[0], data.shape[-1], device=device)
+        buf.readpos = int(readpos)
+    buf.ring = ring_from_jax(ring, device=device)
+    return buf
+
+
+def multilayer_from_jax(data, positions, base, *,
+                        device) -> MultilayerBuffer:
+    """A ``MultilayerBuffer`` from the JAX one's ring ``data [C, cap]``,
+    layer cursors ``positions`` and front ``base``."""
+    data = np.asarray(data)
+    buf = MultilayerBuffer(len(positions), data.shape[0], data.shape[-1],
+                           device=device)
+    buf.data = _tensor(data, device)
+    buf.positions = np.array(positions, np.int64)
+    buf.base = int(base)
+    return buf
+
+
+def running_average_state_from_jax(state, *, device) -> RunningAverageState:
+    """A ``RunningAverageState`` (``tail``, ``count``) of numpy leaves as
+    the port's on ``device``, the count as a host integer."""
+    return RunningAverageState(_tensor(state.tail, device),
+                               int(np.asarray(state.count)))
+
+
+def histogram_state_from_jax(state, *, device) -> HistogramState:
+    """A ``HistogramState`` (int32 ``count``, float32 ``sum``) of numpy
+    leaves as the port's on ``device``."""
+    return HistogramState(
+        torch.from_numpy(np.array(state.count, np.int32)).to(device),
+        _tensor(state.sum, device))
+
+
+def interpolator_from_jax(it, *, device) -> Interpolator:
+    """An ``Interpolator`` (``current``, ``target``) of numpy leaves."""
+    return Interpolator(_tensor(it.current, device), _tensor(it.target, device))
+
+
+def complex_interpolator_from_jax(ci, *, device) -> ComplexInterpolator:
+    """A ``ComplexInterpolator`` (``controller``, ``targets``, ``diffs``)
+    of numpy leaves."""
+    return ComplexInterpolator(*(_tensor(getattr(ci, f), device)
+                                 for f in ComplexInterpolator._fields))

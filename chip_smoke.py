@@ -95,7 +95,31 @@ Phases, each of which exits nonzero on failure:
    ``load_state`` and continued through the path's kernels: >= 110 dB
    against the uninterrupted stream, readouts equal.  Then a file that the
    JAX package wrote (``tests/data/jax_state_v4.pkl``), read here without
-   JAX, continued against that package's own output (>= 110 dB).
+   JAX, continued against that package's own output (>= 110 dB);
+13. the command line and the host edge: 64-channel WAV files of phase
+   11's 10.24 s signal and the headline IRs written with ``write_wav``;
+   ``tools.convolve_cli`` in the process (IR branch: the render kernels,
+   no plain version, every channel of its INT24 output >= 90 dB against
+   float64 ``fftconvolve`` normalised as the CLI normalises; its seconds
+   reading, rendering and writing, and its real-time factor), then ``python
+   -m bbcat_dsp_torch.tools.convolve_cli`` as a process of its own on the
+   same files (exit 0, the same output); the SOFA branch through a
+   netCDF-3 file of 72 directions x 2 ears x 1024 taps (the matrix
+   kernels, both ears >= 90 dB against the float64 sum over the directions
+   the CLI picks), and an HDF5 file refused with an ``ImportError`` naming
+   ``h5py`` where it is not installed; ``tools.loudness_cli`` on the
+   64-channel file and a 2-channel one, within the printed 0.1 of a
+   float64 gating and a float64 true peak; then the small ops at full
+   width: a ``MultilayerBuffer`` mixing two ``BlockConvolver`` s (block
+   128 with 4096 taps, block 512 with 32768 taps) over 2.048 s (the block
+   kernels, >= 90 dB against float64), ``SoundDelayBuffer`` and
+   ``SoundRingBuffer`` exact (INT24 packed round trips, delayed reads,
+   a FIFO), ``mix_samples_ramped`` against a float64 loop,
+   ``convolve2d`` with TF32 allowed by either cuDNN switch (>= 90 dB
+   against scipy, the control without the precision helper far below),
+   ``RunningAverage`` and ``Histogram`` against numpy, with no kernel
+   count moved by the small ops; and whether the native format engine was
+   built and used.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches, error, times and bound.
@@ -105,6 +129,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -1784,7 +1809,7 @@ def main() -> None:
           f"channels: {s:.2f} dB", flush=True)
     if not s >= 110.0:
         fail(f"offline_convolve against the streamed engine: {s:.2f} dB < 110")
-    del xod, yo, xo, yo_h, ys_stream
+    del xod, yo, yo_h, ys_stream                # phase 13 reads xo again
 
     # ---- 12. state files --------------------------------------------------------
     from bbcat_dsp_torch import load_state, save_state
@@ -1965,6 +1990,478 @@ def main() -> None:
     if not min(s_conv, s_bank) >= 110.0:
         fail(f"JAX-written file: {min(s_conv, s_bank):.2f} dB < 110")
     tmpdir.cleanup()
+
+    # ---- 13. the command line and the host edge ---------------------------------
+    from io import StringIO
+    import importlib.util
+    from contextlib import redirect_stdout
+
+    from numpy.lib.stride_tricks import sliding_window_view
+    from scipy.io import netcdf_file
+    from scipy.signal import convolve2d as sp_convolve2d
+
+    from bbcat_dsp_torch.analysis import Histogram, RunningAverage
+    from bbcat_dsp_torch.buffers import (MultilayerBuffer, SoundDelayBuffer,
+                                         SoundRingBuffer)
+    from bbcat_dsp_torch.formats.host import pack
+    from bbcat_dsp_torch.loudness.truepeak import _design as tp_design
+    from bbcat_dsp_torch.ops import convolve2d, interpolator, mix_samples_ramped
+    from bbcat_dsp_torch.sofa import SOFAFile
+    from bbcat_dsp_torch.tools import convolve_cli, loudness_cli, read_wav, write_wav
+    from bbcat_dsp_torch.utils import native
+
+    work = tempfile.TemporaryDirectory()
+    wdir = Path(work.name)
+    INT24_STEP = 2.0 ** -23
+
+    def counts_zero(label: str) -> None:
+        counts = ops_hook.counts()
+        if any(counts["launches"].values()) or any(counts["plain"].values()):
+            fail(f"{label} ran a kernel of the port or a plain version: "
+                 f"{counts}")
+
+    def normalised64(y):
+        """The CLI's normalisation of its output, applied in float64."""
+        peak = np.abs(y).max()
+        return y / peak * 0.999 if peak > 1.0 else y
+
+    # the 64-channel input: phase 11's 10.24 s of distinct noise at 0.05
+    # rms, float32 (a lossless file); the headline IRs as float32
+    T13 = xo.shape[-1]
+    p_in, p_ir = str(wdir / "in64.wav"), str(wdir / "ir64.wav")
+    t0 = time.perf_counter()
+    write_wav(p_in, 0.05 * xo, FS, SampleFormat.FLOAT)
+    write_secs = time.perf_counter() - t0
+    st = native.status()
+    if not st["available"]:
+        print(f"native format engine NOT available ({st['error']}): numpy "
+              "index gathers serve the host edge", flush=True)
+    else:
+        built = ("reused from an earlier build" if st["build_seconds"] is None
+                 else f"built in {st['build_seconds']:.2f} s")
+        print(f"native format engine: {built}, used by every transfer below "
+              f"({st['path']})", flush=True)
+    write_wav(p_ir, irs, FS, SampleFormat.FLOAT)
+    x13, fs13 = read_wav(p_in)
+    ir13, _ = read_wav(p_ir)
+    if fs13 != FS or x13.shape != (C, T13) or \
+            not np.array_equal(x13, (0.05 * xo).astype(np.float32)):
+        fail("write_wav / read_wav: the FLOAT file did not read back exactly")
+    print(f"write_wav {C} ch x {T13 / FS:.2f} s FLOAT: {write_secs:.3f} s "
+          "(the engine's build included where it ran)", flush=True)
+
+    # a. the convolve CLI, IR branch, in this process
+    p_out = str(wdir / "out64.wav")
+    torch.cuda.synchronize()
+    ops_hook.reset_counts()
+    t13 = {}
+    t0 = time.perf_counter()
+    cli_out = StringIO()
+    with redirect_stdout(cli_out):
+        rc = convolve_cli.main([p_in, p_ir, p_out], timings=t13)
+    total = time.perf_counter() - t0
+    print("convolve_cli printed: " + " | ".join(
+        cli_out.getvalue().strip().splitlines()), flush=True)
+    if rc != 0:
+        fail(f"convolve_cli returned {rc}")
+    check_path("convolve_cli, IR branch", ops_hook.counts(), RENDER_KERNELS)
+    print(f"convolve_cli {C} ch x {N} taps x {T13 / FS:.2f} s: read "
+          f"{t13['read']:.3f} s, render {t13['render']:.3f} s, write "
+          f"{t13['write']:.3f} s; {total:.3f} s in all, "
+          f"{T13 / FS / total:.2f} x real time ({card})", flush=True)
+    y13, _ = read_wav(p_out)
+    ref13 = np.stack([fftconvolve(x13[c].astype(np.float64),
+                                  ir13[c].astype(np.float64))[:T13]
+                      for c in range(C)])
+    ref13 = normalised64(ref13)
+    snrs = [snr_db(ref13[c], y13[c]) for c in range(C)]
+    print(f"convolve_cli, IR branch, INT24 output: worst channel "
+          f"{min(snrs):.2f} dB, best {max(snrs):.2f} dB against float64 "
+          "fftconvolve (normalised as the CLI does)", flush=True)
+    if not min(snrs) >= 90.0:
+        fail(f"convolve_cli: channel {int(np.argmin(snrs))} at "
+             f"{min(snrs):.2f} dB < 90")
+    del ref13
+
+    # where the read's and the write's seconds go: the file, the engine's
+    # transfer, the transpose to [C, T] (and back); then the same two
+    # transfers on numpy's path, as where no compiler built the engine
+    from bbcat_dsp_torch.formats.host import transfer_samples
+
+    def edge_parts(label):
+        t0 = time.perf_counter()
+        raw = np.frombuffer(Path(p_in).read_bytes()[44:], np.uint8)
+        t1 = time.perf_counter()
+        flt = np.zeros(raw.size, np.uint8)
+        transfer_samples(raw, SampleFormat.FLOAT, False, 0, C, flt,
+                         SampleFormat.FLOAT, False, 0, C, C, T13)
+        t2 = time.perf_counter()
+        planar = flt.view(np.float32).reshape(T13, C).T.copy()
+        t3 = time.perf_counter()
+        inter = np.ascontiguousarray(planar.T).reshape(-1)
+        t4 = time.perf_counter()
+        out24 = np.zeros(T13 * C * 3, np.uint8)
+        transfer_samples(inter.view(np.uint8), SampleFormat.FLOAT, False, 0,
+                         C, out24, SampleFormat.INT24, False, 0, C, C, T13)
+        t5 = time.perf_counter()
+        print(f"host edge, {label}: file read {t1 - t0:.3f} s, FLOAT -> "
+              f"FLOAT transfer {t2 - t1:.3f} s, transpose to [C, T] "
+              f"{t3 - t2:.3f} s; transpose back {t4 - t3:.3f} s, FLOAT -> "
+              f"INT24 transfer {t5 - t4:.3f} s ({card})", flush=True)
+        return flt, out24
+
+    flt_n, out_n = edge_parts("native engine")
+    real_rect = native.transfer_rect
+    native.transfer_rect = lambda *a, **k: False
+    try:
+        flt_p, out_p = edge_parts("numpy's index gathers")
+    finally:
+        native.transfer_rect = real_rect
+    if not (np.array_equal(flt_n, flt_p) and np.array_equal(out_n, out_p)):
+        fail("the host edge: numpy's bytes differ from the native engine's")
+    del flt_n, out_n, flt_p, out_p
+
+    # the same command as a user runs it: a process of its own, no device
+    # argument
+    p_out2 = str(wdir / "out64_cmd.wav")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m",
+                        "bbcat_dsp_torch.tools.convolve_cli", p_in, p_ir,
+                        p_out2], cwd=str(Path(__file__).resolve().parent),
+                       capture_output=True, text=True, timeout=600)
+    cmd_secs = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"python -m bbcat_dsp_torch.tools.convolve_cli exited "
+             f"{r.returncode}: {r.stderr[-2000:]}")
+    a_bytes, b_bytes = Path(p_out).read_bytes(), Path(p_out2).read_bytes()
+    if a_bytes == b_bytes:
+        same = "the same bytes"
+    else:
+        steps = np.abs(read_wav(p_out2)[0].astype(np.float64) - y13).max() \
+            / INT24_STEP
+        if len(a_bytes) != len(b_bytes) or steps > 1.0:
+            fail(f"the command's output differs from the in-process one "
+                 f"by {steps:.1f} INT24 steps")
+        same = f"at most {steps:.0f} INT24 step apart (not the same bytes)"
+    print(f"python -m bbcat_dsp_torch.tools.convolve_cli: exit 0 in "
+          f"{cmd_secs:.3f} s (start-up included); its output and the "
+          f"in-process one are {same}", flush=True)
+
+    # b. the SOFA branch: a SimpleFreeFieldHRIR file of 72 directions x 2
+    # ears x 1024 taps as classic netCDF-3, which reads without h5py
+    n_dir = 72
+    hr = rng.standard_normal((n_dir, 2, N_HRTF)) * np.exp(
+        -np.arange(N_HRTF) / 200.0)
+    hr /= np.sqrt(np.sum(hr ** 2, axis=-1, keepdims=True))
+    pos = np.stack([np.arange(n_dir) * 360.0 / n_dir, np.zeros(n_dir),
+                    np.full(n_dir, 1.2)], -1)
+    p_sofa = str(wdir / "hrtf72.sofa")
+    with netcdf_file(p_sofa, "w") as f:
+        for dim, n in (("M", n_dir), ("R", 2), ("N", N_HRTF), ("I", 1),
+                       ("C", 3)):
+            f.createDimension(dim, n)
+        f.createVariable("Data.IR", "d", ("M", "R", "N"))[:] = hr
+        f.createVariable("Data.SamplingRate", "d", ("I",))[:] = [FS]
+        f.createVariable("SourcePosition", "d", ("M", "C"))[:] = pos
+        f.SOFAConventions = "SimpleFreeFieldHRIR"
+    p_bin = str(wdir / "bin.wav")
+    torch.cuda.synchronize()
+    ops_hook.reset_counts()
+    tb13 = {}
+    t0 = time.perf_counter()
+    cli_out = StringIO()
+    with redirect_stdout(cli_out):
+        rc = convolve_cli.main([p_in, p_sofa, p_bin], timings=tb13)
+    total = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"convolve_cli (SOFA) returned {rc}")
+    check_path("convolve_cli, SOFA branch", ops_hook.counts(), MATRIX_KERNELS)
+    print(f"convolve_cli SOFA {C} -> 2 ch x {T13 / FS:.2f} s: read "
+          f"{tb13['read']:.3f} s, render {tb13['render']:.3f} s, write "
+          f"{tb13['write']:.3f} s; {total:.3f} s in all, "
+          f"{T13 / FS / total:.2f} x real time ({card})", flush=True)
+    # the directions the CLI picks: nearest by great-circle distance, here
+    # on the equator
+    az_in = 360.0 * np.arange(C) / C
+    gap = np.abs((az_in[:, None] - pos[None, :, 0] + 180.0) % 360.0 - 180.0)
+    picks = np.argmin(gap, axis=1)
+    sofa = SOFAFile.open(p_sofa)
+    if [sofa.nearest(a, 0.0) for a in az_in] != picks.tolist():
+        fail("SOFAFile.nearest does not pick the nearest directions")
+    yb, _ = read_wav(p_bin)
+    refb = np.stack([fftconvolve(x13.astype(np.float64), hr[picks, ear],
+                                 axes=-1)[:, :T13].sum(0) for ear in (0, 1)])
+    refb = normalised64(refb)
+    for ear in (0, 1):
+        s = snr_db(refb[ear], yb[ear])
+        print(f"convolve_cli, SOFA branch, ear {ear}: {s:.2f} dB against the "
+              "float64 sum of fftconvolve over the picked directions",
+              flush=True)
+        if not s >= 90.0:
+            fail(f"convolve_cli SOFA ear {ear}: {s:.2f} dB < 90")
+    del refb
+    p_h5 = wdir / "h5.sofa"
+    p_h5.write_bytes(b"\x89HDF\r\n\x1a\n" + bytes(64))
+    if importlib.util.find_spec("h5py") is None:
+        try:
+            SOFAFile.open(str(p_h5))
+        except ImportError as e:
+            if "h5py" not in str(e):
+                fail(f"an HDF5 SOFA file raised an ImportError without "
+                     f"naming h5py: {e}")
+            print(f"an HDF5 SOFA file without h5py: ImportError: {e}",
+                  flush=True)
+        else:
+            fail("an HDF5 SOFA file opened without h5py")
+    else:
+        print("h5py is importable: the HDF5 branch is not "
+              "refused here", flush=True)
+
+    # c. the loudness CLI on the 64-channel file and on a 2-channel one
+    def tp64(x):
+        """Float64 true peak (dBTP) of ``x [C, T]``: the 48-tap 4x
+        interpolator of ``loudness/truepeak.py`` over the positions whose
+        taps lie inside the signal, and the sample peak."""
+        taps = tp_design()
+        peak = 0.0
+        for row in np.asarray(x, np.float64):
+            ups = sliding_window_view(row, taps.shape[1]) @ taps.T
+            peak = max(peak, np.abs(ups).max(), np.abs(row).max())
+        return 20.0 * np.log10(peak)
+
+    t = np.arange(T13) / FS
+    x2 = np.stack([0.1 * xo[0], 0.5 * np.sin(2 * np.pi * 997.0 * t + 0.3)]
+                  ).astype(np.float32)
+    p_st = str(wdir / "stereo.wav")
+    write_wav(p_st, x2, FS, SampleFormat.FLOAT)
+    torch.cuda.synchronize()
+    ops_hook.reset_counts()
+    cli_out = StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(cli_out):
+        rc = loudness_cli.main([p_in, p_st])
+    lsecs = time.perf_counter() - t0
+    counts_zero("loudness_cli")
+    lines = cli_out.getvalue().strip().splitlines()
+    if rc != 0 or len(lines) != 2:
+        fail(f"loudness_cli returned {rc} with {lines}")
+    for line, xx in zip(lines, (x13, x2)):
+        m = re.search(r"integrated ([-+]\S+) LKFS, true peak ([-+]\S+) dBTP",
+                      line)
+        if m is None:
+            fail(f"loudness_cli printed {line!r}")
+        L_cli, tp_cli = float(m.group(1)), float(m.group(2))
+        # BS.1770-4's weights: L R C Ls Rs for up to 5 channels, 1 beyond
+        w = [1.0, 1.0, 1.0, 1.41, 1.41][:len(xx)] if len(xx) <= 5 else \
+            np.ones(len(xx))
+        L64 = gated_lkfs(block_powers64(kweight64(xx), w))
+        tp_ref = tp64(xx)
+        print(f"{line}\n  float64: {L64:+.4f} LKFS, {tp_ref:+.4f} dBTP "
+              f"(differences {L_cli - L64:+.4f} LU, {tp_cli - tp_ref:+.4f} "
+              "dB)", flush=True)
+        if not (abs(L_cli - L64) <= 0.1 and abs(tp_cli - tp_ref) <= 0.1):
+            fail(f"loudness_cli: {L_cli} / {tp_cli} against float64 "
+                 f"{L64:.4f} / {tp_ref:.4f}")
+    print(f"loudness_cli, both files: {lsecs:.3f} s ({card})", flush=True)
+
+    # d. the small ops at a deployment's size.  A MultilayerBuffer mixes two
+    # 64-channel BlockConvolvers: one at block 128 with 4096-tap IRs, a
+    # block a call; one at block 512 with the headline IRs, rendering four
+    # blocks a call; 2.048 s, read 512 frames at a time
+    T_ML, CH_B = 192 * BLOCK, 4 * BLOCK
+    irs_a = (rng.standard_normal((C, 4096)) * np.exp(-np.arange(4096) / 500.0)
+             ).astype(np.float32)
+    xml = x13[:, :T_ML]
+    xmld = torch.from_numpy(xml).to(dev)
+    conv_a = BlockConvolver(irs_a, block=128, device=dev)
+    conv_b = BlockConvolver(ir13, block=BLOCK, device=dev)
+    ml = MultilayerBuffer(2, C, 1024, device=dev)
+    torch.cuda.synchronize()
+    ops_hook.reset_counts()
+    outs = []
+    t0 = time.perf_counter()
+    for j in range(T_ML // CH_B):
+        for k in range(j * CH_B // 128, (j + 1) * CH_B // 128):
+            ml.write_layer(0, conv_a.process_block(xmld[:, k * 128:(k + 1) * 128]))
+        ml.write_layer(1, conv_b.process(xmld[:, j * CH_B:(j + 1) * CH_B]))
+        while ml.readable() >= BLOCK:
+            outs.append(ml.read(BLOCK))
+    torch.cuda.synchronize()
+    ml_secs = time.perf_counter() - t0
+    check_path("MultilayerBuffer of two BlockConvolvers", ops_hook.counts(),
+               BLOCK_KERNELS)
+    ymix = torch.cat(outs, -1).cpu().numpy()
+    if ymix.shape != (C, T_ML) or ml.capacity < CH_B:
+        fail(f"multilayer: output {ymix.shape}, capacity {ml.capacity}")
+    refm = np.stack([fftconvolve(xml[c].astype(np.float64), irs_a[c])[:T_ML]
+                     + fftconvolve(xml[c].astype(np.float64), ir13[c])[:T_ML]
+                     for c in range(C)])
+    worst = min(snr_db(refm[c], ymix[c]) for c in range(C))
+    print(f"MultilayerBuffer mixing BlockConvolvers at blocks 128 (4096 taps) "
+          f"and 512 ({N} taps, 4 blocks a call), {C} ch x {T_ML / FS:.3f} s: "
+          f"worst channel {worst:.2f} dB against float64, the ring grown "
+          f"1024 -> {ml.capacity}; {ml_secs:.3f} s "
+          f"({T_ML / FS / ml_secs:.2f} x real time, {card})", flush=True)
+    if not worst >= 90.0:
+        fail(f"multilayer mix: {worst:.2f} dB < 90")
+    del refm, xmld
+
+    torch.cuda.synchronize()
+    ops_hook.reset_counts()
+    # delay and FIFO buffers, 64 channels: packed INT24 values on the grid
+    # survive exactly; a delayed read is the input moved, exactly
+    grid = rng.integers(-2**23, 2**23, (4800, C)).astype(np.int32) << 8
+    raw = pack(grid.reshape(-1), SampleFormat.INT24)
+    dbuf = SoundDelayBuffer(C, 8192, device=dev)
+    dbuf.write_packed(raw, SampleFormat.INT24, False, 0, C, 4800)
+    back = dbuf.read_packed(SampleFormat.INT24, False, 4800, 4800)
+    vals = dbuf.read(4800, 4800).cpu().numpy()
+    if not np.array_equal(back, raw) or not np.array_equal(
+            vals.T, grid.astype(np.float64) * 2.0 ** -31):
+        fail("SoundDelayBuffer: the packed INT24 round trip is not exact")
+    dbuf = SoundDelayBuffer(C, 8192, device=dev)
+    xd13 = torch.from_numpy(x13[:, :48 * BLOCK]).to(dev)
+    xpad = np.concatenate([np.zeros((C, 8192), np.float32),
+                           x13[:, :48 * BLOCK]], -1)
+    for k in range(48):
+        dbuf.write(xd13[:, k * BLOCK:(k + 1) * BLOCK])
+        for shift in (0, 1, 1000, 7679):
+            got = dbuf.read(BLOCK + shift, BLOCK).cpu().numpy()
+            a = 8192 + k * BLOCK - shift
+            if not np.array_equal(got, xpad[:, a:a + BLOCK]):
+                fail(f"SoundDelayBuffer: block {k}, delay {BLOCK + shift} is "
+                     "not the input moved")
+    fifo = SoundRingBuffer(C, 4096, device=dev)
+    got, k = [], 0
+    while (k + 1) * 480 <= 48 * BLOCK:
+        n = fifo.write(xd13[:, k * 480:(k + 1) * 480])
+        if n != 480:
+            fail(f"SoundRingBuffer: wrote {n} of 480 frames")
+        k += 1
+        while fifo.read_frames_available() >= BLOCK:
+            got.append(fifo.read(BLOCK))
+    got = torch.cat(got, -1).cpu().numpy()
+    if not np.array_equal(got, x13[:, :got.shape[-1]]):
+        fail("SoundRingBuffer: the frames read are not the frames written")
+    print(f"SoundDelayBuffer {C} ch: INT24 packed round trip of 4800 frames "
+          f"exact; 48 blocks read at delays 512, 513, 1512 and 8191 equal the "
+          f"input moved; SoundRingBuffer: {got.shape[-1]} frames through a "
+          "FIFO of 4096 (writes of 480, reads of 512) exact", flush=True)
+
+    # a gain ramp over 50 ms on 64 channels x 100 ms, against a float64
+    # frame loop
+    T_MIX = 4800
+    src = xd13[:, :T_MIX]
+    dst0 = torch.from_numpy(x13[:, T_MIX:2 * T_MIX]).to(dev)
+    inc = float(np.float32(1.0 / 2400))
+    ymr, it = mix_samples_ramped(dst0, src, interpolator(0.0, 1.0, device=dev),
+                                 inc)
+    g, ref = 0.0, np.asarray(x13[:, T_MIX:2 * T_MIX], np.float64).copy()
+    for n in range(T_MIX):
+        ref[:, n] += g * x13[:, n]
+        g = min(g + inc, 1.0)
+    s = snr_db(ref, ymr.cpu().numpy())
+    print(f"mix_samples_ramped {C} ch x {T_MIX}, 0 -> 1 over 2400 frames: "
+          f"{s:.2f} dB against a float64 frame loop, gain {float(it.current)}",
+          flush=True)
+    if not s >= 90.0 or float(it.current) != 1.0:
+        fail(f"mix_samples_ramped: {s:.2f} dB")
+
+    # convolve2d with TF32 allowed by either switch, against scipy; the
+    # control, the same call with the precision helper bypassed, must fall
+    # far below
+    import bbcat_dsp_torch.ops.conv2d as conv2d_mod
+
+    img = rng.standard_normal((4, 256, 256)).astype(np.float32)
+    ker = rng.standard_normal((15, 15)).astype(np.float32)
+    ref2 = np.stack([sp_convolve2d(im.astype(np.float64), ker, mode="same")
+                     for im in img])
+    img_d, ker_d = torch.from_numpy(img).to(dev), torch.from_numpy(ker).to(dev)
+    cudnn = torch.backends.cudnn
+
+    def hold_conv_tf32(label, allow, restore):
+        allow()
+        try:
+            y2 = convolve2d(img_d, ker_d).cpu().numpy()
+            real_f32, conv2d_mod.full_f32 = (conv2d_mod.full_f32,
+                                             contextlib.nullcontext)
+            try:
+                yb2 = convolve2d(img_d, ker_d).cpu().numpy()
+            finally:
+                conv2d_mod.full_f32 = real_f32
+        finally:
+            restore()
+        s, sb = snr_db(ref2, y2), snr_db(ref2, yb2)
+        print(f"convolve2d 4 x 256 x 256 (*) 15 x 15 with {label}: {s:.2f} dB "
+              f"against scipy; the control without the precision helper "
+              f"{sb:.2f} dB", flush=True)
+        if not s >= 90.0:
+            fail(f"convolve2d with {label}: {s:.2f} dB < 90")
+        if not sb < 80.0:
+            fail(f"convolve2d control with {label}: {sb:.2f} dB, not far "
+                 "below 90: the switch did not enable TF32")
+
+    prev_conv = cudnn.conv.fp32_precision
+    hold_conv_tf32('cudnn.conv.fp32_precision = "tf32"',
+                   lambda: setattr(cudnn.conv, "fp32_precision", "tf32"),
+                   lambda: setattr(cudnn.conv, "fp32_precision", prev_conv))
+    hold_conv_tf32("cudnn.allow_tf32 = True",
+                   lambda: setattr(cudnn, "allow_tf32", True),
+                   lambda: setattr(cudnn.conv, "fp32_precision", prev_conv))
+
+    # a running RMS meter (100 ms and 10 ms windows of the power) and a
+    # histogram of its levels, 64 channels x 2.048 s in blocks of 512
+    ra = RunningAverage(4800, (C,), alt_window=480, device=dev)
+    pw = xd13 ** 2
+    means, alts = [], []
+    for k in range(48):
+        means.append(ra.write(pw[:, k * BLOCK:(k + 1) * BLOCK]))
+        alts.append(ra._last_alt)
+    means = torch.cat(means, -1).cpu().numpy()
+    alts = torch.cat(alts, -1).cpu().numpy()
+    p64 = np.asarray(x13[:, :48 * BLOCK], np.float64) ** 2
+    cs = np.concatenate([np.zeros((C, 1)), np.cumsum(p64, -1)], -1)
+    i = np.arange(p64.shape[-1])
+    s_ra = []
+    for w, got in ((4800, means), (480, alts)):
+        lo = np.maximum(i + 1 - w, 0)
+        s_ra.append(snr_db((cs[:, i + 1] - cs[:, lo]) / (i + 1 - lo), got))
+    levels = 10.0 * np.log10(np.maximum(means, 1e-12)).astype(np.float32)
+    hist = Histogram(800, -80.0, 0.0, device=dev)
+    hist.write(torch.from_numpy(levels).to(dev))
+    lv = levels.reshape(-1)
+    f32 = np.float32
+    idx = np.clip(((lv - f32(-80.0)) * f32(800) / (f32(0.0) - f32(-80.0)))
+                  .astype(np.int32), 0, 799)
+    want_counts = np.bincount(idx, minlength=800)
+    want_sums = np.bincount(idx, weights=lv.astype(np.float64), minlength=800)
+    # a bin's sum is float32, as in the JAX package: a float32 sum of n
+    # terms in any order is off by at most g = (n - 1) u / (1 - (n - 1) u),
+    # u = 2^-24, of the sum of their magnitudes (all levels here are
+    # negative), and ~260,000 levels near -26 dB share a bin of 0.1 dB
+    nu = np.maximum(want_counts - 1, 0) * 2.0 ** -24
+    err_bound = nu / (1.0 - nu) * np.abs(want_sums)
+    sum_err = np.abs(hist.sums().astype(np.float64) - want_sums)
+    p50 = hist.percentile_index(0.5)
+    want_p50 = int(np.searchsorted(np.cumsum(want_counts), 0.5 * lv.size))
+    counts_ok = np.array_equal(hist.counts(), want_counts)
+    print(f"RunningAverage {C} ch, windows 4800 and 480, 48 blocks: "
+          f"{s_ra[0]:.2f} / {s_ra[1]:.2f} dB against float64; Histogram of "
+          f"{lv.size} levels in 800 bins (at most {want_counts.max()} in one): "
+          f"counts {'equal' if counts_ok else 'DIFFER'} to numpy's, median "
+          f"bin {p50} (numpy {want_p50}), each bin's float32 sum within "
+          f"{(sum_err / np.maximum(err_bound, 1e-300)).max():.3f} of its "
+          f"bound, mean {hist.mean_data():.4f} dB (float64 "
+          f"{lv.astype(np.float64).mean():.4f})", flush=True)
+    if not (min(s_ra) >= 90.0 and counts_ok and p50 == want_p50
+            and np.all(sum_err <= err_bound)):
+        fail("RunningAverage / Histogram against numpy float64")
+    torch.cuda.synchronize()
+    counts_zero("the small ops")
+    print("the small ops (delay and FIFO buffers, mixing, convolve2d, "
+          "running average, histogram) launched no kernel of the port and ran "
+          "no plain version: the counts stayed zero", flush=True)
+    work.cleanup()
 
     for name in results:
         results[name]["launches"] = sum(c[name] for c in path_launches)
