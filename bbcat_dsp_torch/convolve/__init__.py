@@ -9,6 +9,7 @@ from .block import (
     convolver_render,
     convolver_step,
     convolver_step_crossfade,
+    ir_spectra,
     partition_ir,
 )
 from .fft import (
@@ -16,6 +17,7 @@ from .fft import (
     half_window_signs,
     irfft_tail_planes,
     rfft_half_planes,
+    rfft_planes,
     spectral_nbins,
 )
 from .matrix import (
@@ -32,6 +34,7 @@ from .nonuniform import (
     NonUniformState,
     nonuniform_render,
     nonuniform_render_looped,
+    nonuniform_spectra,
 )
 
 __all__ = [
@@ -42,10 +45,12 @@ __all__ = [
     "convolver_step",
     "convolver_step_crossfade",
     "partition_ir",
+    "ir_spectra",
     "SpectralSpec",
     "half_window_signs",
     "irfft_tail_planes",
     "rfft_half_planes",
+    "rfft_planes",
     "spectral_nbins",
     "MatrixConvolver",
     "filter_from_planes",
@@ -57,5 +62,6 @@ __all__ = [
     "NonUniformState",
     "nonuniform_render",
     "nonuniform_render_looped",
+    "nonuniform_spectra",
     "offline_convolve",
 ]

@@ -10,6 +10,13 @@ is the reference's static-slot step (``_step_static_slot``), whose MAC is
 the rotated MAC (K9, ``ops_hook.rotated_mac``), and :func:`convolver_render`
 always takes the reference's static roll for the queue's write-back.  The
 render's MAC has the head MAC's contract (K7, ``ops_hook.head_mac``).
+
+The functions (:func:`convolver_render`, :func:`convolver_step`,
+:func:`ir_spectra`) are the training surface, as in the JAX package: they
+are differentiable in reverse and in forward mode through the kernels
+(:mod:`~bbcat_dsp_torch.ops.autograd`), in the IRs, the spectra, the
+signal and the state.  :class:`BlockConvolver` keeps its filter and state
+out of autograd: it streams, it does not train.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from .fft import half_window_signs, spectral_nbins
 __all__ = [
     "ConvolverState",
     "partition_ir",
+    "ir_spectra",
     "convolver_init",
     "convolver_step",
     "convolver_step_crossfade",
@@ -59,6 +67,26 @@ def partition_ir(ir, block: int, nparts: int | None = None, *,
     return torch.from_numpy(planes).to(device)
 
 
+def ir_spectra(ir: torch.Tensor, block: int,
+               nparts: int | None = None) -> torch.Tensor:
+    """:func:`partition_ir` of an IR tensor ``[C, N]`` (or ``[N]``) on its
+    own device, differentiable: the ``[2, P, C, F]`` spectra, so that a
+    gradient reaches the time-domain IR.  Each ``block``-tap piece
+    zero-padded to ``2 * block`` is exactly the half-window transform's
+    input, so the pieces take one K3 launch on the card, in float32 (where
+    :func:`partition_ir` transforms in float64 on the host)."""
+    ir2 = ir if ir.dim() == 2 else ir[None]
+    C, N = ir2.shape
+    P = max(1, -(-N // block))
+    if nparts is not None:
+        if nparts < P:
+            raise ValueError(f"IR needs {P} partitions, got nparts={nparts}")
+        P = nparts
+    padded = torch.nn.functional.pad(ir2, (0, P * block - N))
+    parts = padded.reshape(C, P, block).transpose(0, 1).contiguous()
+    return ops_hook.rfft_half(parts, 2 * block)
+
+
 def convolver_init(nchannels: int, block: int, nparts: int, *,
                    device) -> ConvolverState:
     F = spectral_nbins(2 * block)
@@ -70,7 +98,10 @@ def convolver_init(nchannels: int, block: int, nparts: int, *,
 
 
 def _roll_slots(a: torch.Tensor, shift: int, dim: int = 1) -> torch.Tensor:
-    """Circular roll: ``out[s] = a[(s + shift) % n]`` along ``dim``."""
+    """Circular roll: ``out[s] = a[(s + shift) % n]`` along ``dim``.  At
+    a shift of 0 the result is ``a`` itself, which may be a kernel's
+    output saved for a backward pass: no caller writes into it in place
+    (``_push`` and ``_tail_step_xt`` clone the queue first)."""
     shift %= a.shape[dim]
     return a if shift == 0 else torch.roll(a, -shift, dims=dim)
 

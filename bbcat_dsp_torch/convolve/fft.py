@@ -25,6 +25,7 @@ __all__ = [
     "SpectralSpec",
     "spectral_nbins",
     "half_window_signs",
+    "rfft_planes",
     "rfft_half_planes",
     "irfft_tail_planes",
 ]
@@ -53,11 +54,17 @@ def half_window_signs(n: int, device) -> torch.Tensor:
     return s
 
 
+def rfft_planes(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Real FFT of the last axis at size ``n`` (zero-padded to it) ->
+    ``[2, ..., n//2 + 1]`` re/im planes."""
+    X = torch.fft.rfft(x, n=n, dim=-1)
+    return torch.stack([X.real, X.imag])
+
+
 def rfft_half_planes(x: torch.Tensor, n: int) -> torch.Tensor:
     """rFFT of ``[x, zeros]`` where ``x.shape[-1] == n // 2`` ->
     ``[2, ..., n//2 + 1]`` planes."""
-    X = torch.fft.rfft(x, n=n, dim=-1)
-    return torch.stack([X.real, X.imag])
+    return rfft_planes(x, n)
 
 
 def irfft_tail_planes(planes: torch.Tensor, n: int) -> torch.Tensor:

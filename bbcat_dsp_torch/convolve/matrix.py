@@ -18,6 +18,11 @@ runs it at ``Precision.HIGHEST``.
 The step counter is a host integer, so the slot of every queue access is
 known on the host: the render always takes the reference's static roll,
 whether or not its block count is a multiple of P.
+
+The functions (:func:`matrix_render`, :func:`matrix_step`) are the
+training surface, differentiable in both modes (K3 and K4 through
+:mod:`~bbcat_dsp_torch.ops.autograd`); :class:`MatrixConvolver` keeps its
+filter and state out of autograd.
 """
 
 from __future__ import annotations

@@ -21,6 +21,14 @@ exchange (:meth:`~NonUniformConvolver.set_filter`) add the head MAC (K7):
 the head of a crossfade or of one small block is K3, K7, K4, and every
 per-super-step tail is K3, K7, K4.  On CPU tensors the same calls run the
 kernels' plain versions.
+
+The functions (:func:`nonuniform_render`, :func:`nonuniform_spectra`) are
+the training surface, as in the JAX package: they are differentiable in
+reverse and in forward mode through the kernels
+(:mod:`~bbcat_dsp_torch.ops.autograd`), in the IRs, the spectra, the
+signal and the state.  :class:`NonUniformConvolver` keeps its filters and
+buffers out of autograd (``process_small_block`` gathers its super-block
+in place): it streams, it does not train.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from .block import (
     _ramp,
     _roll_slots,
     convolver_init,
+    ir_spectra,
     partition_ir,
 )
 from .fft import half_window_signs, spectral_nbins
@@ -45,6 +54,7 @@ __all__ = [
     "NonUniformConvolver",
     "nonuniform_render",
     "nonuniform_render_looped",
+    "nonuniform_spectra",
 ]
 
 
@@ -59,6 +69,22 @@ def _split_ir(ir: np.ndarray, block: int, ratio: int):
     ir = np.atleast_2d(np.asarray(ir))
     n1 = 2 * ratio * block
     return ir[:, :n1], (ir[:, n1:] if ir.shape[1] > n1 else None)
+
+
+def nonuniform_spectra(ir: torch.Tensor, block: int, ratio: int = 8):
+    """``(H_head, H_tail)`` of IRs ``[C, N]`` (or ``[N]``) for the engine
+    at ``block`` and ``ratio``, on the IRs' device and differentiable: the
+    tensor counterpart of :class:`NonUniformConvolver`'s spectra.  The
+    first ``2 * ratio * block`` taps go to the head's ``2 * ratio``
+    partitions of ``block``, the rest to as many partitions of ``ratio *
+    block`` as they fill."""
+    ir2 = ir if ir.dim() == 2 else ir[None]
+    n1 = 2 * ratio * block
+    tail = ir2[:, n1:]
+    if tail.shape[1] == 0:
+        tail = ir2.new_zeros((ir2.shape[0], 1))
+    return (ir_spectra(ir2[:, :n1], block, 2 * ratio),
+            ir_spectra(tail, ratio * block))
 
 
 def _head_step(xcarry, prev, H_head, x, block: int):

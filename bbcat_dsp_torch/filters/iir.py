@@ -29,7 +29,10 @@ poles, 2S independent one-pole recurrences on the same two scans, the
 poles as one more batch axis (:func:`parallel_cascade_apply`).
 
 Every function works on ``[..., T]`` tensors, time last, with the state as
-explicit tensors: a stream continues across calls.
+explicit tensors: a stream continues across calls.  :func:`modal_apply`
+is differentiable in both modes, in the signal, the parameters and the
+state: the doubling scan writes its passes into two buffers, and takes
+them out of place when a derivative is recorded.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.autograd import needs_derivative
 from ..utils.precision import full_f32
 
 __all__ = ["ModalParams", "ModalState", "modal_params", "modal_init",
@@ -157,7 +161,14 @@ def _cpx_affine_scan(pw, v, s0):
     sample ``n < d`` reads zero: one launch a pass."""
     T = v.shape[-1]
     strides, idx = _doubling_strides(T, v.device)
-    if strides:
+    if strides and needs_derivative(pw, v, s0):
+        # autograd records no ``out=``: each pass takes a new tensor
+        pd = pw.index_select(-1, idx).unsqueeze(-1).unbind(-2)
+        for k, d in enumerate(strides):
+            shifted = torch.cat([torch.zeros_like(v[..., :d]),
+                                 v[..., :T - d]], -1)
+            v = torch.addcmul(v, pd[k], shifted)
+    elif strides:
         Z = strides[-1]
         bufs = [v.new_zeros(v.shape[:-1] + (Z + T,)) for _ in range(2)]
         tails = [b.narrow(-1, Z, T) for b in bufs]

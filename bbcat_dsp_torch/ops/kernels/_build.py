@@ -11,24 +11,29 @@ Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a nonzero code into an error.
 The launch counters live here too: a wrapper adds one to its kernel's
 count right after a launch succeeds, and a plain version adds one to its
-own count each time it runs.
+own count each time it runs (:func:`count_plain`): to ``PLAIN_CALLS``, or
+to ``ADJOINT_CALLS`` when it runs as the adjoint of a backward pass
+(inside :func:`adjoint`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
 import torch
 
 __all__ = ["library", "check", "require", "require_cuda", "stream_of",
-           "LAUNCHES", "PLAIN_CALLS"]
+           "count_plain", "adjoint", "LAUNCHES", "PLAIN_CALLS",
+           "ADJOINT_CALLS"]
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -40,6 +45,9 @@ KERNELS = ("fused_head", "rfft_half", "xt_grouped_mac", "irfft_tail",
            "gather_supers", "delayed_add", "head_mac", "rotated_mac")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS: dict[str, int] = dict.fromkeys(KERNELS, 0)
+ADJOINT_CALLS: dict[str, int] = dict.fromkeys(KERNELS, 0)
+# per thread: a CUDA backward pass runs in autograd's own thread
+_COUNTING = threading.local()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -144,6 +152,24 @@ def check(code: int, name: str) -> None:
     if code != 0:
         msg = library().bbcat_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code}: {msg}")
+
+
+def count_plain(name: str) -> None:
+    """One run of kernel ``name``'s plain version: an adjoint's inside
+    :func:`adjoint`, a plain call anywhere else."""
+    adj = getattr(_COUNTING, "adjoint", False)
+    (ADJOINT_CALLS if adj else PLAIN_CALLS)[name] += 1
+
+
+@contextlib.contextmanager
+def adjoint():
+    """Count the plain versions run in this block, on this thread, as the
+    adjoints of a backward pass."""
+    _COUNTING.adjoint = True
+    try:
+        yield
+    finally:
+        _COUNTING.adjoint = False
 
 
 def stream_of(t: torch.Tensor) -> int:

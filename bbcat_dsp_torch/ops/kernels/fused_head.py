@@ -56,7 +56,7 @@ def fused_head_plain(x: torch.Tensor, xcarry: torch.Tensor,
                      prev: torch.Tensor, H: torch.Tensor, block: int):
     """Head over all ``R = T // block`` small blocks of ``x [C, T]``:
     ``(y [C, T], xcarry' [2, P, C, F], prev' [2, C, F])``."""
-    _build.PLAIN_CALLS["fused_head"] += 1
+    _build.count_plain("fused_head")
     C, T = x.shape
     R = T // block
     P = H.shape[1]

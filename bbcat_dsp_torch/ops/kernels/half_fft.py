@@ -100,13 +100,13 @@ def _half(n: int) -> int:
 
 def rfft_half_plain(x: torch.Tensor, n: int) -> torch.Tensor:
     """``[..., n/2]`` -> ``[2, ..., n/2 + 1]``, the half-window spectrum."""
-    _build.PLAIN_CALLS["rfft_half"] += 1
+    _build.count_plain("rfft_half")
     return rfft_half_planes(x, n)
 
 
 def irfft_tail_plain(planes: torch.Tensor, n: int) -> torch.Tensor:
     """``[2, ..., n/2 + 1]`` -> ``[..., n/2]``, the inverse's last half."""
-    _build.PLAIN_CALLS["irfft_tail"] += 1
+    _build.count_plain("irfft_tail")
     return irfft_tail_planes(planes, n)
 
 

@@ -25,7 +25,7 @@ def _split(T: int, nsup: int) -> int:
 
 def gather_supers_plain(x: torch.Tensor, nsup: int) -> torch.Tensor:
     """``x [C, T]`` -> ``[nsup, C, T // nsup]``."""
-    _build.PLAIN_CALLS["gather_supers"] += 1
+    _build.count_plain("gather_supers")
     C, T = x.shape
     return x.reshape(C, nsup, _split(T, nsup)).transpose(0, 1).contiguous()
 
@@ -53,7 +53,7 @@ def delayed_add_plain(y_head: torch.Tensor, pending: torch.Tensor,
                       out_tail: torch.Tensor) -> torch.Tensor:
     """``y[:, j] = y_head[:, j] + (pending[j] if j < 2 else
     out_tail[j-2])`` over the ``Pt`` super-blocks ``j`` of ``y_head``."""
-    _build.PLAIN_CALLS["delayed_add"] += 1
+    _build.count_plain("delayed_add")
     C, T = y_head.shape
     Pt = out_tail.shape[0]
     delayed = torch.cat([pending, out_tail])[:Pt]

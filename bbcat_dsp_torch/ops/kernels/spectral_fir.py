@@ -44,7 +44,7 @@ def xt_grouped_mac_plain(queue: torch.Tensor, xt: torch.Tensor,
                          H: torch.Tensor, slot0: int) -> torch.Tensor:
     """``t = [queue rolled by slot0 | xt]``, ``w[k] = t[k] + (-1)^f
     t[k+1]``, ``out[j] = sum_p w[P-1+j-p] * H[p]``; all ``[2, P, C, F]``."""
-    _build.PLAIN_CALLS["xt_grouped_mac"] += 1
+    _build.count_plain("xt_grouped_mac")
     P, F = H.shape[1], H.shape[-1]
     s = half_window_signs(2 * (F - 1), queue.device)
     tseq = torch.cat([torch.roll(queue, -slot0, dims=1), xt], dim=1)

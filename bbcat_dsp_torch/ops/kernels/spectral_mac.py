@@ -26,7 +26,7 @@ def head_mac_plain(xext: torch.Tensor, H: torch.Tensor,
     """``acc[i] = sum_p xext[P+i-p] * H[p]``: ``xext [2, D, C, F]`` with
     ``D >= P + ratio`` (only the first ``P + ratio`` slots are read), ``H
     [2, P, C, F]`` -> ``[2, ratio, C, F]``."""
-    _build.PLAIN_CALLS["head_mac"] += 1
+    _build.count_plain("head_mac")
     return cplane_mac(xext, H, ratio)
 
 
@@ -34,7 +34,7 @@ def rotated_mac_plain(queue: torch.Tensor, H: torch.Tensor,
                       slot: int) -> torch.Tensor:
     """``acc = sum_p queue[(slot - p) % P] * H[p]``: ``queue, H [2, P, C,
     F]`` -> ``[2, C, F]``."""
-    _build.PLAIN_CALLS["rotated_mac"] += 1
+    _build.count_plain("rotated_mac")
     P = H.shape[1]
     acc_r = torch.zeros_like(queue[0, 0])
     acc_i = torch.zeros_like(queue[0, 0])

@@ -119,7 +119,26 @@ Phases, each of which exits nonzero on failure:
    against scipy, the control without the precision helper far below),
    ``RunningAverage`` and ``Histogram`` against numpy, with no kernel
    count moved by the small ops; and whether the native format engine was
-   built and used.
+   built and used;
+14. training through the kernels: the headline engine at full width (64
+   IRs of 32768 taps through ``nonuniform_spectra``, so their transform
+   is K3's, then two render groups from silence, 49152 samples),
+   differentiated in reverse mode (a loss ``sum(g y)``: the gradients in
+   the IRs and the signal against float64 correlations of the cotangent
+   with the signal and with the IRs; in ``H_head`` and ``H_tail`` against
+   autograd through the plain versions) and in forward mode
+   (``torch.func.jvp`` in the IRs and the signal, against float64
+   ``dx * h + x * dh``); the counts show K1-K6 launched forward and on the
+   tangents and only the plain versions' adjoints backward.  Then the
+   training step (a squared error against another IR set's output,
+   ``backward()``, ``torch.optim.Adam``): its ms back to back and
+   device-only, its launches and adjoint calls, its peak memory and a
+   profile.  The same checks for ``convolver_render`` (K3, K7, K4) and a
+   chain of ``convolver_step`` (K3, K9, K4) at the IR fit's sizes; then
+   the four examples of ``bbcat_dsp_torch.examples`` with their checks
+   (the fit's SNR, both Doppler shifts, the EQ's click check and float64
+   model, the binaural scene's meter against a float64 gating and its
+   INT24 file read back).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches, error, times and bound.
@@ -197,6 +216,23 @@ def snr_db(ref, test) -> float:
     p_noise = float(np.sum(noise ** 2))
     return float("inf") if p_noise == 0 else float(
         10.0 * np.log10(np.sum(ref ** 2) / p_noise))
+
+
+def correlate_rows64(a, b, n: int):
+    """``r[k] = sum_t a[t + k] b[t]`` for ``k < n``, row by row, float64."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    L = 1 << (a.shape[-1] + b.shape[-1]).bit_length()
+    r = np.fft.irfft(np.fft.rfft(a, L) * np.conj(np.fft.rfft(b, L)), L)
+    return r[..., :n]
+
+
+def conv_rows64(a, b):
+    """The causal convolution of ``a`` and ``b`` row by row, cut to
+    ``a``'s length, float64."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    L = 1 << (a.shape[-1] + b.shape[-1]).bit_length()
+    return np.fft.irfft(np.fft.rfft(a, L) * np.fft.rfft(b, L), L)[
+        ..., :a.shape[-1]]
 
 
 def lfilter64(x, c):
@@ -1321,6 +1357,7 @@ def main() -> None:
         for name, durs in top:
             print(f"  {sum(durs) / n:9.1f} us {100 * sum(durs) / n / busy:5.1f}%"
                   f" {len(durs) / n:6.1f}x  {name[:90]}", flush=True)
+        return busy, launches
 
     where_time_goes("NonUniformConvolver.process, T = 24576 (mean of 8 "
                     "renders)", lambda i: conv.process(xs[2 + i]), 8)
@@ -2462,6 +2499,256 @@ def main() -> None:
           "running average, histogram) launched no kernel of the port and ran "
           "no plain version: the counts stayed zero", flush=True)
     work.cleanup()
+
+    # ---- 14. training through the kernels -----------------------------------------
+    from bbcat_dsp_torch.convolve import (
+        convolver_init,
+        convolver_render,
+        convolver_step,
+        ir_spectra,
+        nonuniform_render,
+        nonuniform_spectra,
+    )
+    from bbcat_dsp_torch.examples import (
+        binaural_demo,
+        doppler,
+        fit_ir,
+        streaming_eq,
+    )
+
+    rng14 = np.random.default_rng(SEED + 14)
+    T14 = 2 * T_RENDER                  # two render groups: 49152 samples
+    state14 = NonUniformConvolver(np.zeros((C, N)), block=BLOCK, ratio=RATIO,
+                                  device=dev).state
+    spectra14 = {}
+
+    def headline(ir, x):
+        """The headline engine from silence on the IRs ``[C, N]``: their
+        spectra through K3 (``nonuniform_spectra``), then both render
+        groups (K1-K6), the state carried across them."""
+        Hh, Ht = nonuniform_spectra(ir, BLOCK, RATIO)
+        if Hh.requires_grad:
+            Hh.retain_grad()
+            Ht.retain_grad()
+            spectra14["H"] = (Hh, Ht)
+        return nonuniform_render(state14, Hh, Ht, x, BLOCK)[1]
+
+    def check_adjoint(label: str, counts: dict, must: set) -> None:
+        """Fail unless a backward pass launched no kernel, ran no plain
+        version as such, and ran the adjoint of every kernel in ``must``."""
+        print(f"{label}: counts {counts}", flush=True)
+        if any(counts["launches"].values()) or any(counts["plain"].values()):
+            fail(f"{label}: the backward pass launched kernels or ran plain "
+                 f"versions: {counts}")
+        missing = sorted(k for k in must if counts["adjoint"][k] <= 0)
+        if missing:
+            fail(f"{label}: no adjoint of {missing} ran")
+
+    def hold_training(label, fn, h, x, must):
+        """``y = fn(ir, x)`` from silence, differentiated in both modes on
+        the card: reverse mode in the IRs and the signal for a loss ``sum(g
+        y)`` against float64 correlations (``dL/dh[n] = sum_t g[t+n]
+        x[t]``, ``dL/dx[t] = sum_n g[t+n] h[n]``), forward mode against
+        ``dx * h + x * dh`` in float64, each >= 90 dB; the kernels of
+        ``must`` launched forward and on the tangents, only their adjoints
+        backward.  Returns the leaves and the cotangent."""
+        Nh, T = h.shape[-1], x.shape[-1]
+        ir = torch.tensor(h, dtype=torch.float32, device=dev,
+                          requires_grad=True)
+        xs = torch.tensor(x, dtype=torch.float32, device=dev,
+                          requires_grad=True)
+        g = rng14.standard_normal(x.shape).astype(np.float32)
+        gd = torch.from_numpy(g).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ops_hook.reset_counts()
+        y = fn(ir, xs)
+        torch.cuda.synchronize()
+        check_path(f"{label}, forward", ops_hook.counts(), must)
+        ops_hook.reset_counts()
+        (y * gd).sum().backward()
+        torch.cuda.synchronize()
+        check_adjoint(f"{label}, backward", ops_hook.counts(), must)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        s_y = snr_db(conv_rows64(x, h), y.detach().cpu().numpy())
+        s_h = snr_db(correlate_rows64(g, x, Nh), ir.grad.cpu().numpy())
+        s_x = snr_db(correlate_rows64(g, h, T), xs.grad.cpu().numpy())
+        dh = exp_irs(rng14, h.shape[0], Nh)
+        dx = rng14.standard_normal(x.shape)
+        ops_hook.reset_counts()
+        _, tan = torch.func.jvp(
+            fn, (ir.detach(), xs.detach()),
+            (torch.tensor(dh, dtype=torch.float32, device=dev),
+             torch.tensor(dx, dtype=torch.float32, device=dev)))
+        torch.cuda.synchronize()
+        check_path(f"{label}, jvp", ops_hook.counts(), must)
+        s_t = snr_db(conv_rows64(dx, h) + conv_rows64(x, dh),
+                     tan.cpu().numpy())
+        print(f"{label}: output {s_y:.2f} dB, dL/dh {s_h:.2f} dB, dL/dx "
+              f"{s_x:.2f} dB, tangent {s_t:.2f} dB against float64; the "
+              f"forward and backward's peak memory {peak:.3f} GiB over what "
+              f"was allocated before ({card})",
+              flush=True)
+        if not min(s_y, s_h, s_x, s_t) >= 90.0:
+            fail(f"{label}: below 90 dB against float64")
+        return ir, xs, gd
+
+    # the headline engine at full width: 64 channels x 32768 taps, two
+    # render groups; gradients in the IRs, H_head, H_tail and x
+    h14 = exp_irs(rng14, C, N)
+    x14 = rng14.standard_normal((C, T14))
+    ir14, xs14, g14 = hold_training(
+        f"training, headline engine {C} ch x {N} taps, T = {T14}", headline,
+        h14, x14, RENDER_KERNELS)
+    Hh_k, Ht_k = (t.grad for t in spectra14["H"])
+    # the same gradients by pure autograd through the plain versions
+    use("plain")
+    ir_p = ir14.detach().clone().requires_grad_()
+    x_p = xs14.detach().clone().requires_grad_()
+    (headline(ir_p, x_p) * g14).sum().backward()
+    use("kernels")
+    for what, a, b in (("dH_head", spectra14["H"][0].grad, Hh_k),
+                       ("dH_tail", spectra14["H"][1].grad, Ht_k),
+                       ("dL/dh", ir_p.grad, ir14.grad),
+                       ("dL/dx", x_p.grad, xs14.grad)):
+        s = snr_db(a.cpu().numpy(), b.cpu().numpy())
+        print(f"training, headline engine: {what} through the kernels' "
+              f"Functions against autograd through the plain versions: "
+              f"{s:.2f} dB", flush=True)
+        if not s >= 80.0:
+            fail(f"{what}: {s:.2f} dB < 80 against the plain versions")
+
+    # the training step: the IRs as parameters, a squared error against a
+    # target IR set's output, Adam
+    yt14 = headline(torch.tensor(exp_irs(rng14, C, N), dtype=torch.float32,
+                                 device=dev), xs14.detach())
+    ir_step = torch.tensor(h14, dtype=torch.float32, device=dev,
+                           requires_grad=True)
+    opt = torch.optim.Adam([ir_step], lr=3e-2)
+    x_step = xs14.detach()
+
+    def train_step(_=None):
+        opt.zero_grad(set_to_none=True)
+        loss = torch.mean((headline(ir_step, x_step) - yt14) ** 2)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses = [train_step() for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops_hook.reset_counts()
+    losses.append(train_step())
+    torch.cuda.synchronize()
+    step_counts = ops_hook.counts()
+    step_peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    a.record()
+    for _ in range(10):
+        losses.append(train_step())
+    b.record()
+    b.synchronize()
+    step_b2b = a.elapsed_time(b) / 10
+    # device-only: the kernels' summed time in a profile (a spin ahead of
+    # the step cannot hide the host: its ~1500 launches fill the launch
+    # queue, which then blocks the host until the card drains it)
+    busy_us, step_launches = where_time_goes("training step", train_step, 3)
+    losses = [float(v) for v in losses]
+    print(f"training step ({C} ch x {N} taps, T = {T14}: forward, backward, "
+          f"Adam): {step_b2b:.4f} ms back to back (mean of 10), "
+          f"{busy_us / 1e3:.4f} ms device-only (the profile's busy time, "
+          f"{step_launches:.0f} launches of all kinds); the port's kernels "
+          f"{step_counts['launches']}, adjoint calls "
+          f"{step_counts['adjoint']}, plain calls "
+          f"{sum(step_counts['plain'].values())}; peak memory "
+          f"{step_peak:.3f} GiB over what was allocated before; loss "
+          f"{losses[0]:.6g} -> {losses[-1]:.6g} over {len(losses)} steps "
+          f"({card})", flush=True)
+    check_path("training step", step_counts, RENDER_KERNELS)
+    if not losses[-1] < losses[0]:
+        fail("training step: the loss did not fall")
+
+    # the uniform engine at the IR fit's sizes: one channel, block 64, 256
+    # taps, 32 blocks; the render (K3, K7, K4) and a chain of steps (K3,
+    # K9, K4)
+    B14, N14, n14 = 64, 256, 32
+    P14 = N14 // B14
+
+    def uniform_render(ir, x):
+        st = convolver_init(1, B14, P14, device=dev)
+        return convolver_render(st, ir_spectra(ir, B14), x, B14)[1]
+
+    def uniform_steps(ir, x):
+        st, H, ys = convolver_init(1, B14, P14, device=dev), ir_spectra(
+            ir, B14), []
+        for k in range(n14):
+            st, y = convolver_step(st, H, x[:, k * B14:(k + 1) * B14])
+            ys.append(y)
+        return torch.cat(ys, -1)
+
+    h_fit = exp_irs(rng14, 1, N14)
+    x_fit = rng14.standard_normal((1, n14 * B14))
+    hold_training("training, convolver_render at the fit's sizes",
+                  uniform_render, h_fit, x_fit,
+                  {"rfft_half", "head_mac", "irfft_tail"})
+    hold_training("training, convolver_step at the fit's sizes",
+                  uniform_steps, h_fit, x_fit,
+                  {"rfft_half", "rotated_mac", "irfft_tail"})
+
+    # the four examples on the card, each with its own checks
+    def log_as(name):
+        return lambda *a: print(f"  {name}:", *a, flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp14:
+        ops_hook.reset_counts()
+        fit = fit_ir.main(device=dev, log=log_as("fit_ir"))
+        torch.cuda.synchronize()
+        check_path("examples.fit_ir", ops_hook.counts(),
+                   {"rfft_half", "head_mac", "irfft_tail"})
+        print(f"examples.fit_ir: recovered IR SNR {fit['snr_db']:.2f} dB, "
+              f"final loss {fit['rel_loss']:.3e} of the target's power, "
+              f"{fit['steps']} steps in {fit['seconds']:.3f} s ({card})",
+              flush=True)
+        if not (fit["snr_db"] > 30.0 and fit["rel_loss"] < 1e-3):
+            fail("examples.fit_ir did not recover the IR")
+        try:
+            ops_hook.reset_counts()
+            dop = doppler.main(str(Path(tmp14) / "doppler.wav"), device=dev,
+                               log=log_as("doppler"))
+            eqr = streaming_eq.main(str(Path(tmp14) / "eq.wav"), device=dev,
+                                    log=log_as("streaming_eq"))
+            torch.cuda.synchronize()
+            counts_zero("examples.doppler and examples.streaming_eq")
+            ops_hook.reset_counts()
+            bin_ = binaural_demo.main(
+                str(Path(tmp14) / "binaural.wav"), device=dev,
+                sofa_path=str(Path(tmp14) / "hrtf.sofa"),
+                log=log_as("binaural_demo"))
+            torch.cuda.synchronize()
+        except AssertionError as e:
+            fail(f"an example's check: {e}")
+        check_path("examples.binaural_demo", ops_hook.counts(),
+                   MATRIX_KERNELS)
+        yb = bin_["y"]
+        step, blk = int(0.1 * FS), int(0.4 * FS)
+        fed = (yb.shape[1] // step) * step
+        z = block_powers64(kweight64(yb)[:, :fed], [1.0, 1.0],
+                           start=-(blk - step))
+        want = gated_lkfs(z[3:])
+        got = bin_["loudness"]["integrated_lkfs"]
+        back, _ = read_wav(bin_["path"])
+        s_wav = snr_db(yb / max(1.0, np.abs(yb).max()), back)
+        print(f"examples: doppler {dop['f_delay']:.2f} / {dop['f_asrc']:.2f} "
+              f"Hz against {dop['f_theory']:.2f}; streaming_eq "
+              f"{eqr['snr_db']:.2f} dB against the float64 bank, ramp slew "
+              f"{eqr['ramp_slew']:.4f} <= program {eqr['program_slew']:.4f}; "
+              f"binaural_demo integrated {got:.4f} LKFS against float64 "
+              f"{want:.4f}, its INT24 file {s_wav:.2f} dB", flush=True)
+        if not (abs(got - want) <= 0.01 and s_wav >= 100.0):
+            fail("examples.binaural_demo: loudness or file")
 
     for name in results:
         results[name]["launches"] = sum(c[name] for c in path_launches)
