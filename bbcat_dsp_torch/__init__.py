@@ -31,7 +31,11 @@ The port serves, on an NVIDIA Hopper card and on the CPU:
 - the small device-side ops: delay, FIFO and multilayer buffers
   (:mod:`~bbcat_dsp_torch.buffers`), gain ramps, mixing and 2-D
   convolution (:mod:`~bbcat_dsp_torch.ops`), running averages and
-  histograms (:mod:`~bbcat_dsp_torch.analysis`).
+  histograms (:mod:`~bbcat_dsp_torch.analysis`);
+- sharding over a ``torch.distributed`` world
+  (:mod:`~bbcat_dsp_torch.parallel`): channel- and time-sharded renders
+  with the overlap-save halo exchange, sharded loudness, the
+  communication model, and local worlds of processes.
 
 On the card the convolvers run eight CUDA kernels written for ``sm_90a``
 (``csrc/``); on the CPU the kernels' plain PyTorch versions.  The port
@@ -51,6 +55,7 @@ from . import (
     models,
     ops,
     ops_hook,
+    parallel,
     sofa,
     tools,
 )
@@ -75,7 +80,8 @@ from .utils.checkpoint import load_state, save_state
 register()
 
 __all__ = ["analysis", "buffers", "convolve", "filters", "formats",
-           "loudness", "models", "ops", "ops_hook", "sofa", "tools",
+           "loudness", "models", "ops", "ops_hook", "parallel", "sofa",
+           "tools",
            "register", "loaded_versions", "BlockConvolver", "MatrixConvolver",
            "NonUniformConvolver", "NonUniformState", "LoudnessMeter",
            "BinauralRenderer", "EQDelayPipeline", "MixdownPipeline",

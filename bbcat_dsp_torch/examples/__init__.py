@@ -13,5 +13,8 @@ JAX example's, and it checks its own result:
 - ``streaming_eq``: a three-stage EQ retargeted live without a click
   (``examples/streaming_eq.py``);
 - ``binaural_demo``: a scene through a SOFA HRTF set, metered and written
-  as a WAV file (``examples/binaural_demo.py``).
+  as a WAV file (``examples/binaural_demo.py``);
+- ``pod_render``: the two-level render channel-sharded over a world of
+  processes, metered with one all-reduce, and the communication model's
+  projection (``examples/pod_render.py``).
 """

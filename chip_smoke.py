@@ -138,7 +138,41 @@ Phases, each of which exits nonzero on failure:
    the four examples of ``bbcat_dsp_torch.examples`` with their checks
    (the fit's SNR, both Doppler shifts, the EQ's click check and float64
    model, the binaural scene's meter against a float64 gating and its
-   INT24 file read back).
+   INT24 file read back);
+15. the sharded paths (``bbcat_dsp_torch.parallel``) and BASELINE config
+   #5.  Phase 3 first holds the paths' new shapes against the plain
+   versions and times them beside their bounds: K7 at P = 6 and 14, R =
+   2, F = 4097 (the time-sharded render's pending MAC), K3/K4 over the
+   halo's 16 x 64 tail rows (n = 8192) and 17 x 64 head rows (n = 1024),
+   and the config #5 render's K1 (1024 channels, R = 112), K2 (P = 14, its
+   general kernel), K3/K4 (14 x 1024 rows), K5 and K6.  Then (a) config #5
+   in one process at full width, 1024 channels x 65536-tap IRs (block
+   512, ratio 8, Pt = 14, one render group of 57344 samples), held on
+   channels 0, 511 and 1023 against float64 ``fftconvolve`` (>= 90 dB),
+   its real-time factor back to back and device-only over 8 distinct
+   signals, its peak memory and a profile; (b) the same render
+   channel-sharded (``channel_sharded_nonuniform_render``) over gloo
+   worlds of 2 and 4 ranks that share the card, gathered on rank 0 and
+   held against (a) (>= 110 dB, bit-exact or not), each rank's render
+   time (contention on one card, not scaling); (c) its
+   ``sharded_integrated_loudness``, one all-reduce, within 1e-4 LU of the
+   unsharded meter and 0.01 of a float64 gating; (d)
+   ``time_sharded_nonuniform_render`` at config #5's IRs (the first 64),
+   4 ranks x 2 render groups (458752 samples) and then a (ch, t) = (2, 2)
+   mesh, against the sequential stream (>= 110 dB) and float64 on three
+   channels (>= 90 dB), each rank's halo bytes (16.8 MB on the 1-D mesh),
+   what was staged through the host and the exchange's seconds; (e) the
+   uniform engine at the headline geometry (64 x 32768 taps, block 512):
+   ``channel_sharded_step`` over 8 blocks, ``channel_sharded_render`` and
+   ``time_sharded_render`` (4 ranks x 49152 samples), each against one
+   process (>= 110 dB); (f) an NCCL world of one rank: the group, an
+   ``all_reduce_sum`` and a time-sharded render with no exchange, against
+   one process; (g) ``examples.pod_render`` with its own checks; (h) the
+   communication model's projection at (a)'s measured real-time factor,
+   with the data sheets' H100 link bandwidths (assumed).  Every rank of
+   every world launches its path's kernels and runs no plain version,
+   and no rank compiles the kernels again; their launches join the
+   kernels' counts below.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches, error, times and bound.
@@ -640,6 +674,80 @@ def main() -> None:
            median_ms(lambda: k79.rotated_mac_plain(*bench_args, 37)),
            8.0 * C * (BLOCK + 1) * (2 * P_UNIFORM + 1),
            8.0 * P_UNIFORM * C * (BLOCK + 1))
+
+    # the sharded paths' new shapes (phase 15), each against its plain
+    # version and timed beside its bound: the time-sharded two-level
+    # render's pending MAC (K7 at P = Pt, R = 2, F = 4097) and its halo
+    # transforms (K3 over the Pt + 2 tail super-blocks and the Ph + 1 head
+    # blocks of 64 channels at config #5's Pt = 14), then the config #5
+    # render at 1024 channels: K1 (R = 112), K2 (P = 14, its general
+    # kernel), K3/K4 (beside their library calls), K5 and K6
+    def hold_shape(label, kernel, plain_fn, args, cost, bar, library=None):
+        got, want = kernel(*args), plain_fn(*args)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        if bar is None:
+            ok = all(torch.equal(g, w) for g, w in zip(got, want))
+            what = "exact" if ok else "NOT exact"
+        else:
+            low = min(snr_db(w.cpu().numpy(), g.cpu().numpy())
+                      for g, w in zip(got, want))
+            ok, what = low >= bar, f"{low:.1f} dB"
+        ms = median_ms(lambda: kernel(*args))
+        plain_ms = median_ms(lambda: plain_fn(*args), iters=5)
+        b_ms, by = bound(*cost)
+        lib = ("" if library is None else
+               f", library call {median_ms(library):.4f} ms")
+        print(f"{label}: {what}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms{lib}, bound {b_ms:.4f} ms ({by}; {100 * b_ms / ms:.0f}% "
+              f"of it)  ({card})", flush=True)
+        if not ok:
+            fail(f"{label}: {what} against the plain version")
+
+    C5, N5, PT5 = 1024, 65536, 14        # BASELINE config #5
+    T5 = PT5 * SB                        # one render group: 57344 samples
+    CT5 = 64                             # phase 15's time-sharded channels
+    for P in (6, PT5):
+        hold_shape(f"head_mac C={CT5} P={P} R=2 F={SB + 1} (the pending MAC)",
+                   k79.head_mac_cuda, k79.head_mac_plain,
+                   (randn(2, P + 2, CT5, SB + 1), randn(2, P, CT5, SB + 1), 2),
+                   k7_cost(CT5, P, 2, SB + 1), 120.0)
+    for lead, n in (((PT5 + 2, CT5), 2 * SB), ((2 * RATIO + 1, CT5), 2 * BLOCK),
+                    ((PT5, C5), 2 * SB)):
+        xr, pr = randn(*lead, n // 2), randn(2, *lead, n // 2 + 1)
+        spec = torch.complex(pr[0], pr[1])
+        rows = int(np.prod(lead))
+        hold_shape(f"rfft_half rows={lead} n={n}", k34.rfft_half_cuda,
+                   k34.rfft_half_plain, (xr, n), fft_cost(rows, n // 2), 110.0,
+                   library=lambda: torch.fft.rfft(xr, n=n))
+        hold_shape(f"irfft_tail rows={lead} n={n}", k34.irfft_tail_cuda,
+                   k34.irfft_tail_plain, (pr, n), fft_cost(rows, n // 2),
+                   110.0, library=lambda: torch.fft.irfft(
+                       spec, n=n)[..., n // 2:].contiguous())
+    del xr, pr, spec
+    hold_shape(f"fused_head C={C5} P=16 B={BLOCK} R={T5 // BLOCK}",
+               k1.fused_head_cuda, k1.fused_head_plain,
+               (randn(C5, T5), randn(2, 16, C5, BLOCK + 1),
+                randn(2, C5, BLOCK + 1), randn(2, 16, C5, BLOCK + 1), BLOCK),
+               k1_cost(C5, 16, BLOCK, T5 // BLOCK), 110.0)
+    hold_shape(f"xt_grouped_mac P={PT5} C={C5} F={SB + 1} (general kernel), "
+               f"slot0 = 5", k2.xt_grouped_mac_cuda, k2.xt_grouped_mac_plain,
+               (randn(2, PT5, C5, SB + 1), randn(2, PT5, C5, SB + 1),
+                randn(2, PT5, C5, SB + 1), 5),
+               k2_cost(PT5, C5, SB + 1), 120.0)
+    x1024 = randn(C5, T5)
+    hold_shape(f"gather_supers C={C5} nsup={PT5} B2={SB}",
+               k56.gather_supers_cuda, k56.gather_supers_plain, (x1024, PT5),
+               (2 * 4.0 * C5 * T5, 0.0), None,
+               library=lambda: x1024.reshape(C5, PT5, SB).permute(
+                   1, 0, 2).contiguous())
+    hold_shape(f"delayed_add C={C5} Pt={PT5} B2={SB}", k56.delayed_add_cuda,
+               k56.delayed_add_plain,
+               (x1024, randn(2, C5, SB), randn(PT5, C5, SB)),
+               (4.0 * C5 * SB * (3 * PT5 + 2), 1.0 * C5 * T5), None)
+    del x1024
+    torch.cuda.empty_cache()
 
     path_launches = []
 
@@ -2749,6 +2857,308 @@ def main() -> None:
               f"{want:.4f}, its INT24 file {s_wav:.2f} dB", flush=True)
         if not (abs(got - want) <= 0.01 and s_wav >= 100.0):
             fail("examples.binaural_demo: loudness or file")
+
+    # ---- 15. sharded renders and BASELINE config #5 ------------------------------
+    from bbcat_dsp_torch.examples import pod_render
+    from bbcat_dsp_torch.loudness import integrated_loudness
+    from bbcat_dsp_torch.parallel import (
+        CommEnv,
+        cases,
+        config5_scaling_table,
+        halo_bytes,
+        run_local_world,
+        time_sharded_efficiency,
+    )
+    from bbcat_dsp_torch.parallel.cases import Seeded
+
+    WORLD_TIMEOUT = 300.0                # each world's, spawn included
+    CHECKED5 = (0, C5 // 2 - 1, C5 - 1)     # channels 0, 511, 1023
+    irs5 = Seeded(SEED + 15, C5, N5, decay=16000.0)
+    x5 = Seeded(SEED + 115, C5, T5)
+
+    # (a) config #5 in one process, at full width: 1024 channels x
+    # 65536-tap IRs, block 512, ratio 8, Pt = 14, one render group
+    t0 = time.perf_counter()
+    h5 = irs5.make()
+    conv5 = NonUniformConvolver(h5, block=BLOCK, ratio=RATIO, device=dev)
+    x5h = x5.make().astype(np.float32)
+    print(f"config #5: IRs and signal made and the engine built in "
+          f"{time.perf_counter() - t0:.2f} s on the host; tail partitions "
+          f"{conv5.tail_parts}", flush=True)
+    if conv5.tail_parts != PT5:
+        fail(f"config #5: {conv5.tail_parts} tail partitions, not {PT5}")
+    xd5 = torch.from_numpy(x5h).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base5 = torch.cuda.memory_allocated()
+    ops_hook.reset_counts()
+    y5 = conv5.process(xd5)
+    torch.cuda.synchronize()
+    check_path("config #5, one process", ops_hook.counts(), RENDER_KERNELS)
+    peak5 = (torch.cuda.max_memory_allocated() - base5) / 2 ** 30
+    held5 = sum(t.numel() * 4 for t in (
+        conv5.H_head, conv5.H_tail, conv5.state.xcarry, conv5.state.prev,
+        conv5.state.tail.queue, conv5.state.tail.prev,
+        conv5.state.pending)) / 2 ** 30
+    y5h = y5.cpu().numpy()
+    if y5h.shape != x5h.shape or not np.all(np.isfinite(y5h)):
+        fail(f"config #5: output shape {y5h.shape} or non-finite values")
+    for ch in CHECKED5:
+        s = snr_db(fftconvolve(x5h[ch].astype(np.float64), h5[ch])[:T5],
+                   y5h[ch])
+        print(f"config #5 channel {ch}: {s:.2f} dB against float64", flush=True)
+        if not s >= 90.0:
+            fail(f"config #5 channel {ch}: {s:.2f} dB < 90 against float64")
+    # the real-time factor over 8 distinct signals, streamed
+    xs5 = randn(8, C5, T5)
+    conv5.reset()
+    conv5.process(xs5[0])
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    a.record()
+    for r in range(1, 8):
+        conv5.process(xs5[r])
+    b.record()
+    b.synchronize()
+    b2b5 = a.elapsed_time(b) / 7
+    it5 = iter(range(10 ** 6))
+    dev5 = median_ms(lambda: conv5.process(xs5[1 + next(it5) % 7]), iters=13)
+    rtf5 = T5 / FS / (b2b5 / 1e3)
+    print(f"config #5 render ({C5} ch x {N5} taps, T = {T5}, "
+          f"{T5 / FS:.4f} s): {b2b5:.4f} ms back to back (mean of 7), "
+          f"{dev5:.4f} ms device-only (median of 13): {rtf5:.2f} x real time "
+          f"back to back, {T5 / FS / (dev5 / 1e3):.2f} x device-only; peak "
+          f"memory {peak5:.3f} GiB over what was allocated before the render, "
+          f"the engine's spectra and state {held5:.3f} GiB ({card})",
+          flush=True)
+    where_time_goes("config #5 render, one group (mean of 4 renders)",
+                    lambda i: conv5.process(xs5[1 + i]), 4)
+    del xs5, xd5
+    torch.cuda.empty_cache()
+
+    # (b)-(e) in worlds of ranks that share this card under gloo (NCCL
+    # takes one rank a card): config #5 channel-sharded (and its
+    # loudness, one all-reduce) over 2 and 4 ranks; config #5's IRs (the
+    # first 64 of them) time-sharded over 4 ranks and over a (2, 2) mesh,
+    # two render groups a span; the uniform engine at the headline
+    # geometry, channel-sharded by steps and by render, and time-sharded
+    irs_d = irs5._replace(rows=CT5)
+    T_D = 4 * 2 * T5                     # 458752 samples, 9.56 s
+    x_d = Seeded(SEED + 215, CT5, T_D)
+    irs_e = Seeded(SEED + 315, C, N, decay=4000.0)
+    x_step = Seeded(SEED + 415, C, 8 * BLOCK)
+    x_rend = Seeded(SEED + 515, C, T_RENDER)
+    T_E = 4 * 2 * T_RENDER               # 49152 samples a rank
+    x_time = Seeded(SEED + 615, C, T_E)
+    sharded5 = ("channel_nonuniform", {"irs": irs5, "x": x5, "block": BLOCK,
+                                       "ratio": RATIO, "meter_fs": FS})
+    world4 = [sharded5,
+              ("time_nonuniform", {"irs": irs_d, "x": x_d, "block": BLOCK,
+                                   "ratio": RATIO}),
+              ("time_nonuniform", {"irs": irs_d,
+                                   "x": x_d._replace(n=T_D // 2),
+                                   "block": BLOCK, "ratio": RATIO,
+                                   "mesh_shape": (2, 2)}),
+              ("channel_step", {"irs": irs_e, "x": x_step, "block": BLOCK}),
+              ("channel_render", {"irs": irs_e, "x": x_rend, "block": BLOCK}),
+              ("time_render", {"irs": irs_e, "x": x_time, "block": BLOCK})]
+    worlds = {}
+    for n, todo in ((2, [sharded5]), (4, world4)):
+        t0 = time.perf_counter()
+        try:
+            ranks = run_local_world(cases.run, n, args=(todo,),
+                                    backend="gloo", device=dev,
+                                    timeout=WORLD_TIMEOUT)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"gloo world of {n}: {e}")
+        worlds[n] = [[r[i] for r in ranks] for i in range(len(todo))]
+        print(f"gloo world of {n} ranks on {card}: {len(todo)} cases in "
+              f"{time.perf_counter() - t0:.2f} s (spawn and start-up "
+              f"included)", flush=True)
+        compiled = [i for i, r in enumerate(ranks)
+                    if any(c.get("compiled") for c in r)]
+        if compiled:
+            fail(f"gloo world of {n}: ranks {compiled} compiled the kernels "
+                 f"again")
+
+    def hold_ranks(label, rs, must, ref=None, bar=110.0):
+        """Every rank launched the path's kernels and ran no plain version;
+        rank 0's gathered output against ``ref``."""
+        for i, r in enumerate(rs):
+            check_path(f"{label}, rank {i}", r["counts"], must)
+        secs = ", ".join(f"{r['seconds'] * 1e3:.2f}" for r in rs)
+        line = f"{label}: ranks' render ms {secs} (contention on one card, " \
+               f"not scaling)"
+        if ref is not None:
+            got = rs[0]["y"]
+            if got is None or got.shape != ref.shape:
+                fail(f"{label}: rank 0 gathered "
+                     f"{None if got is None else got.shape}, not {ref.shape}")
+            s = snr_db(ref, got)
+            exact = "bit-exact" if np.array_equal(ref, got) else "not bit-exact"
+            line += (f"; gathered on rank 0: {s:.2f} dB against one process, "
+                     f"{exact}")
+            if not s >= bar:
+                fail(f"{label}: {s:.2f} dB < {bar} against one process")
+        print(line + f" ({card})", flush=True)
+
+    # (b) config #5 channel-sharded over 2 and 4 ranks
+    lkfs_one = float(integrated_loudness(y5, FS, np.ones(C5)))
+    lkfs64 = gated_lkfs(block_powers64(kweight64(y5h), np.ones(C5)))
+    for n in (2, 4):
+        rs = worlds[n][0]
+        hold_ranks(f"config #5 channel-sharded over {n} ranks "
+                   f"({C5 // n} channels a rank)", rs, RENDER_KERNELS, y5h)
+        # (c) its loudness: one all-reduce of the block powers
+        got = [r["lkfs"] for r in rs]
+        ar = [r["meter_comm"]["all_reduce_sum"] for r in rs]
+        print(f"config #5 sharded loudness over {n} ranks: {got[0]:.6f} LKFS "
+              f"(ranks {'equal' if len(set(got)) == 1 else got}); unsharded "
+              f"{lkfs_one:.6f}, float64 {lkfs64:.6f}; the all-reduce "
+              f"{ar[0]['bytes_sent']} bytes a rank, staged "
+              f"{ar[0]['staged_bytes']} bytes through the host, "
+              f"{max(a['seconds'] for a in ar) * 1e3:.3f} ms at most; meter "
+              f"{max(r['meter_seconds'] for r in rs) * 1e3:.2f} ms ({card})",
+              flush=True)
+        if len(set(got)) != 1 or abs(got[0] - lkfs_one) >= 1e-4 or abs(
+                got[0] - lkfs64) > 0.01:
+            fail(f"config #5 sharded loudness over {n} ranks: {got} against "
+                 f"{lkfs_one} (1e-4 LU) and float64 {lkfs64} (0.01)")
+
+    # (d) time-sharded two-level render at config #5's IRs
+    h_d = irs_d.make()
+    x_dh = x_d.make().astype(np.float32)
+    conv_d = NonUniformConvolver(h_d, block=BLOCK, ratio=RATIO, device=dev)
+    xd_d = torch.from_numpy(x_dh).to(dev)
+    conv_d.process(xd_d[:, :2 * T5])
+    conv_d.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y_seq = conv_d.process(xd_d)
+    torch.cuda.synchronize()
+    rtf_d = T_D / FS / (time.perf_counter() - t0)
+    y_seq = y_seq.cpu().numpy()
+    halo_d = halo_bytes(CT5, PT5 + 2, SB)
+    for k, (label, ref, c_local) in enumerate((
+            ("time-sharded over 4 ranks", y_seq, CT5),
+            ("time-sharded over a (ch, t) = (2, 2) mesh",
+             y_seq[:, :T_D // 2], CT5 // 2))):
+        rs = worlds[4][1 + k]
+        hold_ranks(f"config #5 IRs, {CT5} ch, {label}", rs, STREAM_KERNELS,
+                   ref)
+        for ch in (0, CT5 // 2 - 1, CT5 - 1):
+            want = fftconvolve(x_dh[ch, :ref.shape[1]].astype(np.float64),
+                               h_d[ch])[:ref.shape[1]]
+            s = snr_db(want, rs[0]["y"][ch])
+            print(f"  channel {ch}: {s:.2f} dB against float64", flush=True)
+            if not s >= 90.0:
+                fail(f"{label} channel {ch}: {s:.2f} dB < 90 against float64")
+        want_b = halo_bytes(c_local, PT5 + 2, SB)
+        for i, r in enumerate(rs):
+            hx = r["comm"]["halo_exchange"]
+            first = (i % 2 == 0) if k else (i == 0)
+            last = (i % 2 == 1) if k else (i == 3)
+            print(f"  rank {i}: halo sent {hx['bytes_sent']} B, received "
+                  f"{hx['bytes_received']} B, staged {hx['staged_bytes']} B "
+                  f"through the host, {hx['seconds'] * 1e3:.3f} ms", flush=True)
+            if (hx["bytes_sent"] != (0 if last else want_b)
+                    or hx["bytes_received"] != (0 if first else want_b)):
+                fail(f"{label} rank {i}: halo bytes {hx}, expected {want_b}")
+    print(f"  the halo: {halo_d} bytes a rank ({halo_d / 1e6:.1f} MB) on the "
+          f"1-D mesh", flush=True)
+    del xd_d, conv_d
+    torch.cuda.empty_cache()
+
+    # (e) the uniform engine, 64 ch x 32768 taps, block 512 (P = 64)
+    h_e = irs_e.make()
+    rs_step, rs_rend, rs_time = worlds[4][3:6]
+    conv_e = BlockConvolver(h_e, BLOCK, device=dev)
+    xs_e = torch.from_numpy(x_step.make().astype(np.float32)).to(dev)
+    ref_e = torch.cat([conv_e.process_block(xs_e[:, k * BLOCK:(k + 1) * BLOCK])
+                       for k in range(8)], -1).cpu().numpy()
+    hold_ranks("BlockConvolver channel-sharded steps, 8 blocks, 4 ranks",
+               rs_step, {"rfft_half", "rotated_mac", "irfft_tail"}, ref_e)
+    conv_e.reset()
+    ref_e = conv_e.process(x_rend.make().astype(np.float32)).cpu().numpy()
+    hold_ranks(f"BlockConvolver channel-sharded render, T = {T_RENDER}, "
+               f"4 ranks", rs_rend, {"rfft_half", "head_mac", "irfft_tail"},
+               ref_e)
+    conv_e.reset()
+    ref_e = conv_e.process(x_time.make().astype(np.float32)).cpu().numpy()
+    hold_ranks(f"BlockConvolver time-sharded render, 4 ranks x {T_E // 4}",
+               rs_time, {"rfft_half", "head_mac", "irfft_tail"}, ref_e)
+    hx = [r["comm"]["halo_exchange"] for r in rs_time]
+    print(f"  its halo: {hx[0]['bytes_sent']} bytes a rank "
+          f"(= {halo_bytes(C, P_UNIFORM, BLOCK)}), "
+          f"{max(h['seconds'] for h in hx) * 1e3:.3f} ms at most", flush=True)
+
+    # (f) an NCCL world of one: the collectives on the card itself
+    x_f = Seeded(SEED + 715, C, T_E // 4)
+    try:
+        r1 = run_local_world(
+            cases.run, 1, args=([("all_reduce", {"values": [1.0, -2.5]}),
+                                 ("time_render", {"irs": irs_e, "x": x_f,
+                                                  "block": BLOCK})],),
+            backend="nccl", device=dev, timeout=WORLD_TIMEOUT)[0]
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"NCCL world of 1: {e}")
+    if not np.array_equal(r1[0]["sum"], np.float32([1.0, -2.5])):
+        fail(f"NCCL world of 1: all_reduce_sum gave {r1[0]['sum']}")
+    conv_e.reset()
+    ref_f = conv_e.process(x_f.make().astype(np.float32)).cpu().numpy()
+    hold_ranks("NCCL world of 1: init, all_reduce_sum, time-sharded render "
+               "(n = 1, no exchange)", [r1[1]],
+               {"rfft_half", "head_mac", "irfft_tail"}, ref_f)
+    ar1, hx1 = (r1[0]["comm"]["all_reduce_sum"],
+                r1[1]["comm"]["halo_exchange"])
+    print(f"  NCCL all_reduce_sum: staged {ar1['staged_bytes']} bytes through "
+          f"the host; the halo exchange's calls {hx1['calls']}, bytes "
+          f"{hx1['bytes_sent']}", flush=True)
+    del conv_e
+    torch.cuda.empty_cache()
+
+    # (g) the pod_render example, its own world of 4 and its own checks
+    try:
+        pod = pod_render.main(device=dev, log=log_as("pod_render"))
+    except AssertionError as e:
+        fail(f"examples.pod_render's check: {e}")
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"examples.pod_render's world: {e}")
+    for i, r in enumerate(pod["ranks"]):
+        check_path(f"examples.pod_render, rank {i}", r["counts"],
+                   RENDER_KERNELS)
+    print(f"examples.pod_render: {pod['snr_db']:.2f} dB against one process, "
+          f"{pod['lkfs']:.6f} LKFS against {pod['lkfs_ref']:.6f} unsharded, "
+          f"the one-process render {pod['rtf']:.2f} x real time, scalar "
+          f"all-reduce round trip {pod['round_trip'] * 1e6:.1f} us ({card})",
+          flush=True)
+
+    # (h) the communication model at (a)'s real-time factor
+    env = CommEnv(nvlink_lat=pod["round_trip"], ib_lat=pod["round_trip"])
+    print(f"comms model at config #5's measured {rtf5:.2f} x real time on one "
+          f"card ({card}); bandwidths assumed from the data sheets (NVLink 4 "
+          f"{env.nvlink_bw / 1e9:.0f} GB/s a direction, NDR InfiniBand "
+          f"{env.ib_bw / 1e9:.0f} GB/s); latency {pod['round_trip'] * 1e6:.1f} "
+          f"us, the scalar all-reduce round trip measured above (gloo, one "
+          f"host), for want of a link figure:", flush=True)
+    free = config5_scaling_table(rtf5, env=CommEnv(nvlink_lat=0.0,
+                                                   ib_lat=0.0))
+    for row, row0 in zip(config5_scaling_table(rtf5, env=env), free):
+        print(f"  {row['chips']:2d} cards on {row['hosts']} host(s): "
+              f"{row['aggregate_rtf']:10.1f} x real time at "
+              f"{100 * row['efficiency']:6.2f}% efficiency ("
+              f"{100 * row0['efficiency']:.4f}% with no latency), input "
+              f"ceiling {row['input_bound_rtf']:.1f} x", flush=True)
+    eff, eff0 = (time_sharded_efficiency(rtf_d, T_D / 4 / FS, CT5, PT5 + 2,
+                                         SB, 4, env=e)
+                 for e in (env, CommEnv(nvlink_lat=0.0, ib_lat=0.0)))
+    print(f"  time-sharded (d) at its one-process {rtf_d:.2f} x real time: "
+          f"halo {eff['halo_bytes']} bytes, {eff['comm_s'] * 1e6:.1f} us over "
+          f"NVLink ({eff0['comm_s'] * 1e6:.1f} us with no latency) against "
+          f"{eff['compute_s'] * 1e3:.2f} ms of compute a span: "
+          f"{100 * eff['efficiency']:.3f}% efficiency "
+          f"({100 * eff0['efficiency']:.3f}%)", flush=True)
 
     for name in results:
         results[name]["launches"] = sum(c[name] for c in path_launches)
