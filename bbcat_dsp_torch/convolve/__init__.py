@@ -14,7 +14,9 @@ from .block import (
 )
 from .fft import (
     SpectralSpec,
+    cmul,
     half_window_signs,
+    irfft_planes,
     irfft_tail_planes,
     rfft_half_planes,
     rfft_planes,
@@ -47,7 +49,9 @@ __all__ = [
     "partition_ir",
     "ir_spectra",
     "SpectralSpec",
+    "cmul",
     "half_window_signs",
+    "irfft_planes",
     "irfft_tail_planes",
     "rfft_half_planes",
     "rfft_planes",

@@ -11,6 +11,13 @@ the rotated MAC (K9, ``ops_hook.rotated_mac``), and :func:`convolver_render`
 always takes the reference's static roll for the queue's write-back.  The
 render's MAC has the head MAC's contract (K7, ``ops_hook.head_mac``).
 
+The spectral queue may be stored narrower than float32 (``dtype``
+bfloat16 or float16, as in the JAX package): a window is rounded to it
+when it is written, and every MAC reads it widened to float32 (K9 reads
+the narrow queue itself).  Everything else, the carried ``prev``
+included, stays float32, so a single render rounds only the queue it
+carries out.
+
 The functions (:func:`convolver_render`, :func:`convolver_step`,
 :func:`ir_spectra`) are the training surface, as in the JAX package: they
 are differentiable in reverse and in forward mode through the kernels
@@ -33,6 +40,7 @@ __all__ = [
     "ConvolverState",
     "partition_ir",
     "ir_spectra",
+    "QUEUE_DTYPES",
     "convolver_init",
     "convolver_step",
     "convolver_step_crossfade",
@@ -41,10 +49,24 @@ __all__ = [
 ]
 
 
+# the spectral queue's storage types; the JAX package with 64-bit types
+# off quietly makes float32 of a float64 request, the port refuses it
+QUEUE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
 class ConvolverState(NamedTuple):
     queue: torch.Tensor  # [2, P, C, F] spectra of past input blocks
     prev: torch.Tensor   # [2, C, F] half-window spectrum of the last block
     step: int            # blocks processed (queue write cursor)
+
+
+def queue_dtype(dtype) -> torch.dtype:
+    """``dtype`` if the spectral queue can be stored in it, else
+    ``ValueError``."""
+    if dtype not in QUEUE_DTYPES:
+        raise ValueError(f"queue dtype {dtype}: the convolvers store their "
+                         f"queue in one of {QUEUE_DTYPES}")
+    return dtype
 
 
 def partition_ir(ir, block: int, nparts: int | None = None, *,
@@ -87,12 +109,16 @@ def ir_spectra(ir: torch.Tensor, block: int,
     return ops_hook.rfft_half(parts, 2 * block)
 
 
-def convolver_init(nchannels: int, block: int, nparts: int, *,
-                   device) -> ConvolverState:
+def convolver_init(nchannels: int, block: int, nparts: int,
+                   dtype=torch.float32, *, device) -> ConvolverState:
+    """The state of silence, queue and ``prev`` of ``dtype`` (one of
+    :data:`QUEUE_DTYPES`); after a block ``prev`` is float32."""
     F = spectral_nbins(2 * block)
+    dtype = queue_dtype(dtype)
     return ConvolverState(
-        queue=torch.zeros((2, nparts, nchannels, F), device=device),
-        prev=torch.zeros((2, nchannels, F), device=device),
+        queue=torch.zeros((2, nparts, nchannels, F), dtype=dtype,
+                          device=device),
+        prev=torch.zeros((2, nchannels, F), dtype=dtype, device=device),
         step=0,
     )
 
@@ -113,9 +139,10 @@ def _ramp(n: int, device) -> torch.Tensor:
 
 def _push(state: ConvolverState, x: torch.Tensor):
     """Half-window transform of ``x [C, B]``, window assembly by the shift
-    theorem, and the queue write at the host slot ``step % P``:
-    ``(queue', slot, xt)``, ``xt`` the next state's ``prev``.  The write
-    goes to a copy: the old queue may still be someone's state."""
+    theorem, and the queue write at the host slot ``step % P``, rounded
+    to the queue's dtype: ``(queue', slot, xt)``, ``xt`` the next state's
+    ``prev``.  The write goes to a copy: the old queue may still be
+    someone's state."""
     P = state.queue.shape[1]
     B = x.shape[-1]
     xt = ops_hook.rfft_half(x, 2 * B)                     # [2, C, F]
@@ -162,16 +189,17 @@ def convolver_render(state: ConvolverState, H: torch.Tensor, x: torch.Tensor,
     slot0 = state.step % P
     xb = x.reshape(C, n, B).transpose(0, 1).contiguous()  # [n, C, B]
     xt = ops_hook.rfft_half(xb, 2 * B)                    # [2, n, C, F]
-    ext = torch.cat([state.prev[:, None], xt], dim=1)
+    ext = torch.cat([state.prev[:, None].float(), xt], dim=1)
     X = ext[:, :-1] + half_window_signs(2 * B, x.device) * ext[:, 1:]
     # past P windows, oldest first: the window of step - P + k is in slot
-    # (slot0 + k) % P
-    Xext = torch.cat([_roll_slots(state.queue, slot0), X], dim=1)
+    # (slot0 + k) % P; a narrow queue widens here
+    Xext = torch.cat([_roll_slots(state.queue, slot0).float(), X], dim=1)
     acc = ops_hook.head_mac(Xext, H, n)                   # [2, n, C, F]
     y = ops_hook.irfft_tail(acc, 2 * B).transpose(0, 1).reshape(C, T)
     # the last P windows back in slot encoding: window j of them is step
     # step + n - P + j, slot (slot0 + n + j) % P
-    queue = _roll_slots(Xext[:, n:n + P], -(slot0 + n)).contiguous()
+    queue = _roll_slots(Xext[:, n:n + P], -(slot0 + n)).to(
+        state.queue.dtype).contiguous()
     return ConvolverState(queue, xt[:, -1].contiguous(), state.step + n), y
 
 
@@ -180,12 +208,15 @@ class BlockConvolver:
     host-driven click-free IR exchange.
 
     ``ir [C, N]`` (or ``[N]``, broadcast to ``nchannels``) as a numpy
-    array; every tensor lives on ``device``.  :meth:`process_block` takes
-    one block ``[C, block]`` (or ``[block]`` for mono), :meth:`process` a
-    whole ``[C, T]`` signal; both continue the same stream."""
+    array; every tensor lives on ``device``.  ``dtype`` is the spectral
+    queue's storage type (:data:`QUEUE_DTYPES`; float32, or bfloat16 or
+    float16 to halve its bytes).  :meth:`process_block` takes one block
+    ``[C, block]`` (or ``[block]`` for mono), :meth:`process` a whole
+    ``[C, T]`` signal; both continue the same stream."""
 
     def __init__(self, ir, block: int, nchannels: int | None = None,
-                 nparts: int | None = None, *, device):
+                 nparts: int | None = None, dtype=torch.float32, *, device):
+        self.dtype = queue_dtype(dtype)
         ir2 = np.atleast_2d(np.asarray(ir))
         if nchannels is None:
             nchannels = ir2.shape[0]
@@ -246,7 +277,9 @@ class BlockConvolver:
         return y[0] if mono else y
 
     def reset(self) -> None:
-        """Restart the stream from silence.  A scheduled exchange stays
-        scheduled, as in the reference."""
+        """Restart the stream from silence, the queue in the engine's
+        ``dtype`` (the reference's ``reset`` takes ``prev``'s type, float32
+        after a block).  A scheduled exchange stays scheduled, as in the
+        reference."""
         self.state = convolver_init(self.nchannels, self.block, self.nparts,
-                                    device=self.device)
+                                    self.dtype, device=self.device)

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -27,7 +28,10 @@ __all__ = [
     "half_window_signs",
     "rfft_planes",
     "rfft_half_planes",
+    "irfft_planes",
     "irfft_tail_planes",
+    "cmul",
+    "planes_from_complex",
 ]
 
 
@@ -67,15 +71,42 @@ def rfft_half_planes(x: torch.Tensor, n: int) -> torch.Tensor:
     return rfft_planes(x, n)
 
 
-def irfft_tail_planes(planes: torch.Tensor, n: int) -> torch.Tensor:
-    """Inverse rFFT of ``[2, ..., n//2 + 1]`` planes, returning only the
-    last ``n // 2`` samples.
-
-    The imaginary parts of the DC and Nyquist bins are dropped, as the
-    inverse of a real transform defines them: pocketfft ignores them, but
-    cuFFT's C2R leaves its output undefined unless they are zero."""
+def _real_spectrum(planes: torch.Tensor, n: int) -> torch.Tensor:
+    """Re/im planes ``[2, ..., F]`` as the complex spectrum of a real
+    ``n``-point signal: the imaginary parts of the DC bin and, for an even
+    ``n`` whose Nyquist bin is among the ``F``, of that bin dropped, as
+    the inverse of a real transform defines them.  pocketfft and
+    ``jnp.fft`` ignore them, but cuFFT's C2R leaves its output undefined
+    unless they are zero."""
     im = planes[1].clone()
     im[..., 0] = 0.0
-    im[..., n // 2] = 0.0
-    y = torch.fft.irfft(torch.complex(planes[0], im), n=n, dim=-1)
-    return y[..., n // 2:]
+    if n % 2 == 0 and planes.shape[-1] > n // 2:
+        im[..., n // 2] = 0.0
+    return torch.complex(planes[0], im)
+
+
+def irfft_planes(planes: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse rFFT of ``[2, ..., F]`` planes -> ``n`` real samples on the
+    last axis; the bins past ``n // 2`` are ignored and missing ones are
+    zero, as in ``torch.fft.irfft``."""
+    return torch.fft.irfft(_real_spectrum(planes, n), n=n, dim=-1)
+
+
+def irfft_tail_planes(planes: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse rFFT of ``[2, ..., n//2 + 1]`` planes, returning only the
+    last ``n // 2`` samples (DC and Nyquist as :func:`irfft_planes` takes
+    them)."""
+    return irfft_planes(planes, n)[..., n // 2:]
+
+
+def cmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise complex product of two plane tensors ``[2, ...]``."""
+    return torch.stack([a[0] * b[0] - a[1] * b[1], a[0] * b[1] + a[1] * b[0]])
+
+
+def planes_from_complex(z, dtype=torch.float32, *, device) -> torch.Tensor:
+    """A host (complex) array ``z`` as re/im planes ``[2, ...]`` of
+    ``dtype`` on ``device``."""
+    z = np.asarray(z)
+    return torch.from_numpy(np.stack([z.real, z.imag])).to(device=device,
+                                                            dtype=dtype)

@@ -32,7 +32,14 @@ import torch
 
 from .. import ops_hook
 from ..utils.precision import full_f32
-from .block import ConvolverState, _push, _ramp, _roll_slots, convolver_init
+from .block import (
+    ConvolverState,
+    _push,
+    _ramp,
+    _roll_slots,
+    convolver_init,
+    queue_dtype,
+)
 from .fft import half_window_signs
 
 __all__ = [
@@ -76,8 +83,10 @@ def _mix(hist: torch.Tensor, H: torch.Tensor, n: int) -> torch.Tensor:
     ``j`` of the history ``hist [2, P - 1 + n, C_in, F]`` (re/im planes,
     oldest window first), ``H [F, P, C_in, C_out]``: re/im planes ``[2, n,
     C_out, F]``.  Bins first, each partition's product is one batched
-    complex matmul over the bins on a strided view of the history."""
+    complex matmul over the bins on a strided view of the history.  A
+    narrow queue's history is widened to float32 first."""
     _, P, _, _ = H.shape
+    hist = hist.float()
     w = torch.complex(hist[0], hist[1]).permute(2, 0, 1).contiguous()
     with full_f32():
         acc = torch.bmm(w[:, P - 1:P - 1 + n], H[:, 0])
@@ -129,17 +138,18 @@ def matrix_render(state: ConvolverState, H: torch.Tensor, x: torch.Tensor,
     slot0 = state.step % P
     xb = x.reshape(Ci, n, B).transpose(0, 1).contiguous()   # [n, Ci, B]
     xt = ops_hook.rfft_half(xb, 2 * B)                       # [2, n, Ci, F]
-    ext = torch.cat([state.prev[:, None], xt], dim=1)
+    ext = torch.cat([state.prev[:, None].float(), xt], dim=1)
     X = ext[:, :-1] + half_window_signs(2 * B, x.device) * ext[:, 1:]
     # past P windows, oldest first: the window of step - P + k is in slot
-    # (slot0 + k) % P
-    Xext = torch.cat([_roll_slots(state.queue, slot0), X], dim=1)
+    # (slot0 + k) % P; a narrow queue widens here
+    Xext = torch.cat([_roll_slots(state.queue, slot0).float(), X], dim=1)
     # the oldest of the past windows feeds no output
     y = ops_hook.irfft_tail(_mix(Xext[:, 1:], H, n), 2 * B)
     y = y.transpose(0, 1).reshape(Co, T)
     # the last P windows back in slot encoding: window j of them is step
     # step + n - P + j, slot (slot0 + n + j) % P
-    queue = _roll_slots(Xext[:, n:n + P], -(slot0 + n)).contiguous()
+    queue = _roll_slots(Xext[:, n:n + P], -(slot0 + n)).to(
+        state.queue.dtype).contiguous()
     return ConvolverState(queue, xt[:, -1].contiguous(), state.step + n), y
 
 
@@ -147,12 +157,16 @@ class MatrixConvolver:
     """Streaming ``C_in -> C_out`` convolver with click-free exchange of the
     IR matrix, on ``device``.
 
-    ``ir_matrix [C_in, C_out, N]`` as a numpy array.  :meth:`process_block`
-    takes one block ``[C_in, block]``, :meth:`process` a whole ``[C_in, T]``
-    signal; both continue the same stream."""
+    ``ir_matrix [C_in, C_out, N]`` as a numpy array; ``dtype`` is the
+    spectral queue's storage type, as for
+    :class:`~bbcat_dsp_torch.convolve.BlockConvolver`.
+    :meth:`process_block` takes one block ``[C_in, block]``,
+    :meth:`process` a whole ``[C_in, T]`` signal; both continue the same
+    stream."""
 
-    def __init__(self, ir_matrix, block: int, nparts: int | None = None, *,
-                 device):
+    def __init__(self, ir_matrix, block: int, nparts: int | None = None,
+                 dtype=torch.float32, *, device):
+        self.dtype = queue_dtype(dtype)
         self.device = torch.device(device)
         self.block = int(block)
         self.H = partition_ir_matrix(ir_matrix, self.block, nparts,
@@ -207,7 +221,8 @@ class MatrixConvolver:
         return y
 
     def reset(self) -> None:
-        """Restart the stream from silence.  A scheduled exchange stays
-        scheduled, as in the reference."""
+        """Restart the stream from silence, the queue in the engine's
+        ``dtype``.  A scheduled exchange stays scheduled, as in the
+        reference."""
         self.state = convolver_init(self.c_in, self.block, self.nparts,
-                                    device=self.device)
+                                    self.dtype, device=self.device)

@@ -291,10 +291,18 @@ class NonUniformConvolver:
 
     :meth:`set_filter` schedules an exchange that the next
     ``process_block`` or ``process_small_block`` fades in; ``process``
-    leaves it scheduled, as the reference does."""
+    leaves it scheduled, as the reference does.  ``dtype`` takes
+    float32 only: any other raises ``ValueError``."""
 
     def __init__(self, ir, block: int, ratio: int = 8,
-                 nchannels: int | None = None, *, device):
+                 nchannels: int | None = None, dtype=torch.float32, *,
+                 device):
+        if dtype != torch.float32:
+            raise ValueError(
+                f"dtype {dtype}: the two-level engine keeps its state in "
+                "float32 only (a narrow tail queue would need a tail MAC, "
+                "K2, that reads one; the reference's narrow engine fails "
+                "in process and process_small_block)")
         ir2 = np.atleast_2d(np.asarray(ir))
         if nchannels is None:
             nchannels = ir2.shape[0]

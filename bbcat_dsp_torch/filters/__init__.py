@@ -26,6 +26,7 @@ from .biquad import (
     biquad_response,
     cascade_response,
     design_bank,
+    write_response,
 )
 from .fractional import (
     ADDITIONAL_DELAY,
@@ -76,6 +77,7 @@ __all__ = [
     "biquad_response",
     "cascade_response",
     "design_bank",
+    "write_response",
     "ADDITIONAL_DELAY",
     "FractionalDelayLine",
     "additional_delay_required",

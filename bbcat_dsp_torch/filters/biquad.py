@@ -20,6 +20,7 @@ __all__ = [
     "biquad_response",
     "design_bank",
     "cascade_response",
+    "write_response",
 ]
 
 
@@ -123,3 +124,20 @@ def cascade_response(coeffs, f, fs: float) -> np.ndarray:
     for row in coeffs:
         h = h * biquad_response(row, f, fs)
     return h
+
+
+def write_response(path, coeffs, fs: float, npoints: int = 1000,
+                   fmin: float = 10.0) -> np.ndarray:
+    """Write the magnitude response (dB) of a biquad or a cascade at
+    ``npoints`` log-spaced frequencies from ``fmin`` to ``fs / 2`` to
+    ``path``, one ``<freq_hz> <mag_db>`` line a point: the reference's
+    debug dump (1000 points to ``coeffs.dat``).  The file is the JAX
+    package's byte for byte.  Returns the frequency grid."""
+    fmax = fs / 2.0
+    f = fmin * (fmax / fmin) ** (np.arange(npoints) / (npoints - 1))
+    mag = np.abs(cascade_response(coeffs, f, fs))
+    db = 20.0 * np.log10(np.maximum(mag, 1e-30))
+    with open(path, "w") as fh:
+        for fi, di in zip(f, db):
+            fh.write(f"{fi:.6f} {di:.6f}\n")
+    return f

@@ -41,8 +41,11 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# K9 counts apart by the queue's type: its float32, bfloat16 and float16
+# instantiations
 KERNELS = ("fused_head", "rfft_half", "xt_grouped_mac", "irfft_tail",
-           "gather_supers", "delayed_add", "head_mac", "rotated_mac")
+           "gather_supers", "delayed_add", "head_mac", "rotated_mac",
+           "rotated_mac_bf16", "rotated_mac_f16")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS: dict[str, int] = dict.fromkeys(KERNELS, 0)
 ADJOINT_CALLS: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -60,7 +63,7 @@ _SIGNATURES = {
     "bbcat_gather_supers": [_P] * 2 + [_I] * 3 + [_P],
     "bbcat_delayed_add": [_P] * 4 + [_I] * 3 + [_P],
     "bbcat_head_mac": [_P] * 3 + [_I] * 5 + [_P],
-    "bbcat_rotated_mac": [_P] * 3 + [_I] * 4 + [_P],
+    "bbcat_rotated_mac": [_P] * 3 + [_I] * 5 + [_P],
     "bbcat_half_fft_plan": [_I, _P, _P, _I, _P, _P],
     "bbcat_xt_unrolled_parts": [],
 }
@@ -176,13 +179,16 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require(t: torch.Tensor, name: str, shape: tuple) -> None:
-    """Check what every kernel operand must be: float32, contiguous, of
-    the given shape."""
+def require(t: torch.Tensor, name: str, shape: tuple,
+            dtypes: tuple = (torch.float32,)) -> None:
+    """Check what every kernel operand must be: of one of ``dtypes``
+    (float32 unless the kernel says otherwise), contiguous, of the given
+    shape."""
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected torch.float32")
+    if t.dtype not in dtypes:
+        want = " or ".join(map(str, dtypes))
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {want}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
 

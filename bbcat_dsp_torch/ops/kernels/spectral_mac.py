@@ -8,6 +8,10 @@ any C) and of ``rotated_mac_pallas`` in the JAX package's ``ops/pallas/``.
 :func:`~bbcat_dsp_torch.ops.kernels.spectral_fir.cplane_mac` (which stays the
 uncounted MAC inside the plain K1 and K2); ``rotated_mac_plain`` follows
 ``adjoint.xla_rotated_mac``.
+
+K9 reads the spectral queue in the convolvers' storage type (float32,
+bfloat16 or float16) and widens it to float32; each type's launches and
+plain calls count under its own name (:data:`ROTATED_MAC_NAMES`).
 """
 
 from __future__ import annotations
@@ -18,7 +22,13 @@ from . import _build
 from .spectral_fir import cplane_mac
 
 __all__ = ["head_mac_plain", "head_mac_cuda", "rotated_mac_plain",
-           "rotated_mac_cuda"]
+           "rotated_mac_cuda", "ROTATED_MAC_NAMES"]
+
+# the queue's type -> K9's count name and the kernel's type code
+ROTATED_MAC_NAMES = {torch.float32: "rotated_mac",
+                     torch.bfloat16: "rotated_mac_bf16",
+                     torch.float16: "rotated_mac_f16"}
+_QTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def head_mac_plain(xext: torch.Tensor, H: torch.Tensor,
@@ -33,9 +43,12 @@ def head_mac_plain(xext: torch.Tensor, H: torch.Tensor,
 def rotated_mac_plain(queue: torch.Tensor, H: torch.Tensor,
                       slot: int) -> torch.Tensor:
     """``acc = sum_p queue[(slot - p) % P] * H[p]``: ``queue, H [2, P, C,
-    F]`` -> ``[2, C, F]``."""
-    _build.count_plain("rotated_mac")
+    F]`` -> ``[2, C, F]`` float32; a narrow queue is widened to float32
+    first."""
+    _build.count_plain(ROTATED_MAC_NAMES.get(queue.dtype, "rotated_mac"))
     P = H.shape[1]
+    if queue.dtype in (torch.bfloat16, torch.float16):
+        queue = queue.float()
     acc_r = torch.zeros_like(queue[0, 0])
     acc_i = torch.zeros_like(queue[0, 0])
     for p in range(P):
@@ -81,17 +94,20 @@ def head_mac_cuda(xext: torch.Tensor, H: torch.Tensor,
 
 def rotated_mac_cuda(queue: torch.Tensor, H: torch.Tensor,
                      slot: int) -> torch.Tensor:
-    """Launch the K9 kernel; same contract as :func:`rotated_mac_plain`."""
+    """Launch the K9 kernel; same contract as :func:`rotated_mac_plain`.
+    The queue may be float32, bfloat16 or float16; H is float32."""
     P, C, F = _planes_of(H)
-    _build.require(queue, "queue", (2, P, C, F))
+    _build.require(queue, "queue", (2, P, C, F), tuple(ROTATED_MAC_NAMES))
     _build.require(H, "H", (2, P, C, F))
     dev = _build.require_cuda(queue=queue, H=H)
     out = torch.empty((2, C, F), dtype=torch.float32, device=dev)
     lib = _build.library()
+    name = ROTATED_MAC_NAMES[queue.dtype]
     with torch.cuda.device(dev):
         code = lib.bbcat_rotated_mac(queue.data_ptr(), H.data_ptr(),
                                      out.data_ptr(), P, C, F, slot % P,
+                                     _QTYPE_CODES[queue.dtype],
                                      _build.stream_of(H))
-    _build.check(code, "rotated_mac")
-    _build.LAUNCHES["rotated_mac"] += 1
+    _build.check(code, name)
+    _build.LAUNCHES[name] += 1
     return out

@@ -20,6 +20,13 @@ Spectra written in the permuted layout (``r (n / 2r + 1)`` bins: 4104
 against 4097 at n = 8192) are brought into the standard one; the
 layout's extra bins are conjugate mirrors and are dropped.
 
+A bfloat16 or float16 queue (a block or matrix convolver built with that
+``dtype``) crosses bit for bit and keeps its dtype both ways, as the JAX
+package's ``load_state`` keeps a file's: float16 as numpy's, bfloat16 as
+an ``ml_dtypes`` array, which is the JAX package's own.  Where
+``ml_dtypes`` does not import, a bfloat16 state is neither written nor
+read: the error names the package.
+
 States that cross: the two-level convolver's, the block and matrix
 convolvers', the modal engine's, the meter's, the binaural renderer's, a
 ring, an ``EQDelayState``, a ``BankState``, and tuples, lists and dicts of
@@ -44,7 +51,7 @@ import numpy as np
 import torch
 
 from ..filters.bank import BankState
-from .interop import bank_state_from_jax, bank_state_to_jax
+from .interop import bank_state_from_jax, bank_state_to_jax, narrow_tensor
 
 __all__ = ["save_state", "load_state"]
 
@@ -53,6 +60,25 @@ _FORMAT = 4
 # only with these radices
 _PERM_MIN_N = 2048
 _PERM_RADICES = (8, 16, 32, 4)
+_NARROW = (torch.bfloat16, torch.float16)
+
+
+def _ml_dtypes():
+    try:
+        import ml_dtypes
+    except ImportError as e:
+        raise ImportError(
+            "a bfloat16 state is stored as the JAX package stores it, an "
+            "ml_dtypes array, and this needs the ml_dtypes package, which "
+            "does not import here") from e
+    return ml_dtypes
+
+
+def _numpy_of(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(_ml_dtypes().bfloat16)
+    return t.numpy()
 
 
 def _flatten(state, out: list) -> None:
@@ -61,7 +87,7 @@ def _flatten(state, out: list) -> None:
     if isinstance(state, BankState):
         out.extend(bank_state_to_jax(state).values())
     elif isinstance(state, torch.Tensor):
-        out.append(state.detach().cpu().numpy())
+        out.append(_numpy_of(state))
     elif isinstance(state, (bool, int, np.integer)):
         out.append(np.asarray(state, np.int32))
     elif isinstance(state, dict):
@@ -113,6 +139,8 @@ class _LeavesUnpickler(pickle.Unpickler):
     def find_class(self, module: str, name: str):
         if module == "numpy" or module.startswith("numpy."):
             return super().find_class(module, name)
+        if (module, name) == ("ml_dtypes", "bfloat16"):
+            return _ml_dtypes().bfloat16
         return _Inert
 
 
@@ -175,8 +203,14 @@ def _fill(like, leaves: list, at: list):
                     f"expected {tuple(like.shape)} (and no permuted spectral "
                     "layout of it)")
             got = conv
-        return torch.from_numpy(np.array(got, order="C")).to(
-            dtype=like.dtype, device=like.device)
+        # a narrow leaf, or one that a narrow engine's state expects (its
+        # prev is float32 once a block has run), keeps the file's dtype
+        t = narrow_tensor(got)
+        if t is None:
+            t = torch.from_numpy(np.array(got, order="C"))
+            if like.dtype not in _NARROW:
+                t = t.to(like.dtype)
+        return t.to(like.device)
     if got.shape != ():
         raise ValueError(f"leaf {at[0] - 1}: shape {got.shape} in the file, "
                          "expected a counter")
@@ -185,7 +219,9 @@ def _fill(like, leaves: list, at: list):
 
 def load_state(path: str, like):
     """The state in ``path``, in the structure, dtypes and devices of
-    ``like`` (the state of a freshly built engine): a file of the port's
+    ``like`` (the state of a freshly built engine; a bfloat16 or float16
+    leaf, or a leaf where ``like`` has one, keeps the file's dtype): a
+    file of the port's
     :func:`save_state` or of the JAX package's.  Format 4 only; an older
     file is refused by its format number (load and save it again with the
     JAX package, which migrates formats 1 to 3)."""

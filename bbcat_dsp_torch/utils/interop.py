@@ -16,7 +16,10 @@ small-block path's partly filled super-block (``_sb_buf``, ``_sb_fill``) is
 not part of the state.  Only the standard spectral layout crosses here: a
 permuted-layout spectrum (``r * (n/r/2 + 1)`` bins instead of ``n/2 + 1``)
 is refused; a state file of that layout is converted when it is read
-(:mod:`~bbcat_dsp_torch.utils.checkpoint`).
+(:mod:`~bbcat_dsp_torch.utils.checkpoint`).  A block or matrix
+convolver's queue and ``prev`` keep their dtype: float32, float16, or
+bfloat16 (an ``ml_dtypes`` array on the JAX side, carried over by its
+bits).
 """
 
 from __future__ import annotations
@@ -53,14 +56,28 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.float32, order="C")).to(device)
 
 
-def _planes(a, name: str, nbins: int, n: int, device) -> torch.Tensor:
+def narrow_tensor(a) -> torch.Tensor | None:
+    """A float16 or bfloat16 (``ml_dtypes``) array as a CPU tensor of its
+    own dtype, bit for bit; ``None`` for any other dtype."""
+    a = np.asarray(a)
+    if a.dtype == np.float16:
+        return torch.from_numpy(np.array(a, order="C"))
+    if a.dtype.name == "bfloat16" and a.dtype.itemsize == 2:
+        bits = np.array(a, order="C").view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    return None
+
+
+def _planes(a, name: str, nbins: int, n: int, device,
+            keep_narrow: bool = False) -> torch.Tensor:
     shape = np.shape(a)
     if shape[0] != 2 or shape[-1] != nbins:
         raise ValueError(
             f"{name}: shape {shape}, expected [2, ..., {nbins}] -- the "
             f"standard layout at FFT size {n} (a permuted-layout state does "
             "not fit the port)")
-    return _tensor(a, device)
+    t = narrow_tensor(a) if keep_narrow else None
+    return _tensor(a, device) if t is None else t.to(device)
 
 
 def from_jax_arrays(H_head, H_tail, state, *, block: int, device):
@@ -89,12 +106,14 @@ def from_jax_arrays(H_head, H_tail, state, *, block: int, device):
 def block_state_from_jax(H, state, *, block: int, device):
     """``(H, ConvolverState)`` of a ``BlockConvolver`` (``H [2, P, C, F]``)
     as tensors on ``device``; ``state`` has ``queue``, ``prev`` and
-    ``step`` as numpy arrays and ``block`` is the engine's block size."""
+    ``step`` as numpy arrays and ``block`` is the engine's block size.
+    The queue and ``prev`` keep a bfloat16 or float16 dtype (an engine
+    built with that ``dtype``)."""
     n = 2 * block
     F = spectral_nbins(n)
     st = ConvolverState(
-        queue=_planes(state.queue, "queue", F, n, device),
-        prev=_planes(state.prev, "prev", F, n, device),
+        queue=_planes(state.queue, "queue", F, n, device, keep_narrow=True),
+        prev=_planes(state.prev, "prev", F, n, device, keep_narrow=True),
         step=int(np.asarray(state.step)),
     )
     return _planes(H, "H", F, n, device), st

@@ -14,7 +14,9 @@ Phases, each of which exits nonzero on failure:
    across their output tiles' edges; K3 and K4 at every size they serve,
    32 to 8192, and at row counts that leave a CTA partly empty; K2 at
    every partition count of its unrolled kernel and at counts of its
-   general one, at every queue cursor), with
+   general one, at every queue cursor; K9 also over a bfloat16 and a
+   float16 queue, each a kernel of its own in the JSON line; K3, K4, K7
+   and K9 at BASELINE config #1's shapes, C = 1), with
    times (CUDA events, median of 20 launches) at the main paths' shapes
    (four each for K3, K4 and K7), each beside its bound: the
    larger of the bytes the function must move over 3.35 TB/s and its
@@ -172,7 +174,23 @@ Phases, each of which exits nonzero on failure:
    with the data sheets' H100 link bandwidths (assumed).  Every rank of
    every world launches its path's kernels and runs no plain version,
    and no rank compiles the kernels again; their launches join the
-   kernels' counts below.
+   kernels' counts below;
+16. (a) BASELINE config #1 at its own geometry, uncut: a mono
+   ``BlockConvolver``, block 512, one 4096-tap IR (P = 8), renders of
+   T = 32768 samples: ``process`` and 64 ``process_block`` calls against
+   float64 ``fftconvolve`` (>= 90 dB), each launching exactly K3, K7, K4
+   once a render and K3, K9, K4 once a block; the render's real-time
+   factor back to back over 8 distinct signals and device-only; the worst
+   block back to back (the median of three runs' worst) against the
+   deadline, and device-only; a profile of each; (b) the narrow queue
+   (``dtype`` bfloat16 and float16) at the headline's 64 ch x 32768 taps,
+   64 blocks with an exchange: the kernels against the plain versions at
+   the same dtype (>= 110 dB), the distance from the float32 engine and
+   from float64 printed, K9's narrow variant launched and the float32 one
+   not, K9's time per dtype beside its bound; (c) ``irfft_planes`` on the
+   card against the CPU (>= 110 dB) with nonzero DC and Nyquist imaginary
+   parts, and the same spectra through ``torch.fft.irfft``, which must
+   read lower at some shape for the zeroing to show.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches, error, times and bound.
@@ -675,6 +693,37 @@ def main() -> None:
            8.0 * C * (BLOCK + 1) * (2 * P_UNIFORM + 1),
            8.0 * P_UNIFORM * C * (BLOCK + 1))
 
+    # K9 over a narrow queue (the convolvers' dtype; phase 16): bfloat16
+    # and float16 at the step's shape and small odd ones, each against the
+    # plain version on the same stored values (both widen them)
+    FQ = BLOCK + 1
+    for name, dt in (("rotated_mac_bf16", torch.bfloat16),
+                     ("rotated_mac_f16", torch.float16)):
+        bad = []
+        for P, Cc, F, slot in ((P_UNIFORM, C, FQ, 37), (P_UNIFORM, C, FQ, 0),
+                               (8, 1, FQ, 3), (5, 3, 17, 4), (1, 1, 9, 0)):
+            args = (randn(2, P, Cc, F).to(dt), randn(2, P, Cc, F))
+            got = k79.rotated_mac_cuda(*args, slot)
+            want = k79.rotated_mac_plain(*args, slot)
+            s = snr_db(want.cpu().numpy(), got.cpu().numpy())
+            if not s >= 110.0:
+                bad.append(f"{name} P={P} C={Cc} F={F} slot={slot}")
+            print(f"{name} P={P} C={Cc} F={F} slot={slot}: {s:.1f} dB",
+                  flush=True)
+            if slot == 37:
+                err, bench_args = float((got - want).abs().max()), args
+        if bad:
+            fail(f"below 110 dB: {bad}")
+        qbytes = 2.0 * P_UNIFORM * C * FQ * bench_args[0].element_size()
+        print(f"{name}: the queue {qbytes / 1e6:.1f} MB against "
+              f"{qbytes * 2 / 1e6:.1f} MB in float32", flush=True)
+        record(name, "bbcat_dsp_torch/csrc/spectral_mac.cu",
+               tpu_kernel("rotated_mac_pallas"), err,
+               median_ms(lambda: k79.rotated_mac_cuda(*bench_args, 37)),
+               median_ms(lambda: k79.rotated_mac_plain(*bench_args, 37)),
+               qbytes + 8.0 * C * FQ * (P_UNIFORM + 1),
+               8.0 * P_UNIFORM * C * FQ)
+
     # the sharded paths' new shapes (phase 15), each against its plain
     # version and timed beside its bound: the time-sharded two-level
     # render's pending MAC (K7 at P = Pt, R = 2, F = 4097) and its halo
@@ -700,8 +749,9 @@ def main() -> None:
         lib = ("" if library is None else
                f", library call {median_ms(library):.4f} ms")
         print(f"{label}: {what}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms{lib}, bound {b_ms:.4f} ms ({by}; {100 * b_ms / ms:.0f}% "
-              f"of it)  ({card})", flush=True)
+              f"ms{lib}, bound {b_ms:.6f} ms ({by}; {cost[0] / 1e6:.3f} MB, "
+              f"{cost[1] / 1e9:.4f} GFLOP; {100 * b_ms / ms:.0f}% of it)  "
+              f"({card})", flush=True)
         if not ok:
             fail(f"{label}: {what} against the plain version")
 
@@ -747,6 +797,31 @@ def main() -> None:
                (x1024, randn(2, C5, SB), randn(PT5, C5, SB)),
                (4.0 * C5 * SB * (3 * PT5 + 2), 1.0 * C5 * T5), None)
     del x1024
+    # BASELINE config #1's shapes (phase 16: mono, block 512, 4096 taps,
+    # P = 8, renders of 64 blocks): K3/K4 over one block and over the
+    # render's 64, K7 at C = 1 R = 64, K9 at C = 1
+    P1, R1 = 8, 64
+    for lead in ((1,), (R1, 1)):
+        xr, pr = randn(*lead, BLOCK), randn(2, *lead, FQ)
+        spec = torch.complex(pr[0], pr[1])
+        rows = int(np.prod(lead))
+        hold_shape(f"rfft_half rows={lead} n={2 * BLOCK} (config #1)",
+                   k34.rfft_half_cuda, k34.rfft_half_plain, (xr, 2 * BLOCK),
+                   fft_cost(rows, BLOCK), 110.0,
+                   library=lambda: torch.fft.rfft(xr, n=2 * BLOCK))
+        hold_shape(f"irfft_tail rows={lead} n={2 * BLOCK} (config #1)",
+                   k34.irfft_tail_cuda, k34.irfft_tail_plain,
+                   (pr, 2 * BLOCK), fft_cost(rows, BLOCK), 110.0,
+                   library=lambda: torch.fft.irfft(
+                       spec, n=2 * BLOCK)[..., BLOCK:].contiguous())
+    hold_shape(f"head_mac C=1 P={P1} R={R1} F={FQ} (config #1 render)",
+               k79.head_mac_cuda, k79.head_mac_plain,
+               (randn(2, P1 + R1, 1, FQ), randn(2, P1, 1, FQ), R1),
+               k7_cost(1, P1, R1, FQ), 120.0)
+    hold_shape(f"rotated_mac P={P1} C=1 F={FQ} slot=5 (config #1 block)",
+               k79.rotated_mac_cuda, k79.rotated_mac_plain,
+               (randn(2, P1, 1, FQ), randn(2, P1, 1, FQ), 5),
+               (8.0 * FQ * (2 * P1 + 1), 8.0 * P1 * FQ), 120.0)
     torch.cuda.empty_cache()
 
     path_launches = []
@@ -3159,6 +3234,216 @@ def main() -> None:
           f"{eff['compute_s'] * 1e3:.2f} ms of compute a span: "
           f"{100 * eff['efficiency']:.3f}% efficiency "
           f"({100 * eff0['efficiency']:.3f}%)", flush=True)
+
+    # ---- 16. config #1, the narrow queue, irfft_planes ---------------------------
+    from bbcat_dsp_torch.convolve import irfft_planes
+
+    # (a) BASELINE config #1 at its own geometry, uncut (BASELINE.md item
+    # 1, scripts/bench_all.py:50-65): mono, block 512, one 4096-tap IR
+    # (P = 8), T = 64 blocks = 32768 samples
+    N1, T1 = 4096, 64 * BLOCK
+    rng16 = np.random.default_rng(SEED + 16)
+    ir1 = rng16.standard_normal(N1) * np.exp(-np.arange(N1) / 500.0)
+    x1 = rng16.standard_normal((10, T1)).astype(np.float32)  # 2 + 8 timed
+    x1d = torch.from_numpy(x1).to(dev)
+    c1 = BlockConvolver(ir1, BLOCK, device=dev)
+    if c1.nparts != N1 // BLOCK:
+        fail(f"config #1 BlockConvolver holds {c1.nparts} partitions")
+
+    def exact_launches(label: str, want: dict) -> None:
+        """``check_path``, and the launches exactly ``want``."""
+        counts = ops_hook.counts()
+        check_path(label, counts, set(want))
+        got = {k: v for k, v in counts["launches"].items() if v}
+        if got != want:
+            fail(f"{label}: launches {got}, expected {want}")
+
+    torch.cuda.synchronize()
+    ops_hook.reset_counts()
+    y1 = c1.process(x1d[0])
+    torch.cuda.synchronize()
+    exact_launches("config #1 process, T = 32768",
+                   {"rfft_half": 1, "head_mac": 1, "irfft_tail": 1})
+    c1.reset()
+    torch.cuda.synchronize()
+    ops_hook.reset_counts()
+    yb1 = torch.cat([c1.process_block(x1d[1, i * BLOCK:(i + 1) * BLOCK])
+                     for i in range(T1 // BLOCK)])
+    torch.cuda.synchronize()
+    exact_launches("config #1 process_block x 64",
+                   {"rfft_half": 64, "rotated_mac": 64, "irfft_tail": 64})
+    for label, i, y in (("process", 0, y1), ("process_block x 64", 1, yb1)):
+        y = y.cpu().numpy()
+        if y.shape != (T1,) or not np.all(np.isfinite(y)):
+            fail(f"config #1 {label}: shape {y.shape} or non-finite values")
+        s = snr_db(fftconvolve(x1[i].astype(np.float64), ir1)[:T1], y)
+        print(f"config #1 {label}: {s:.2f} dB against float64", flush=True)
+        if not s >= 90.0:
+            fail(f"config #1 {label}: {s:.2f} dB < 90 against float64")
+
+    audio1 = T1 / FS
+    c1.reset()
+    for r in range(2):
+        c1.process(x1d[r])
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for r in range(8):
+        c1.process(x1d[2 + r])
+    b.record()
+    torch.cuda.synchronize()
+    b2b1 = a.elapsed_time(b) / 8
+    it = iter(range(10 ** 6))
+    devo1 = [per_block_ms(lambda _: c1.process(x1d[2 + next(it) % 8]), 1,
+                          True) for _ in range(8)]
+    dev_txt = ("device-only not resolved (host slower than the spin)"
+               if None in devo1 else
+               f"device-only median {statistics.median(t[0] for t in devo1):.4f}"
+               f" ms = {audio1 / (statistics.median(t[0] for t in devo1) / 1e3):.2f}"
+               " x real time")
+    print(f"config #1 process, T = {T1} ({audio1:.4f} s of audio), 8 distinct "
+          f"signals: {b2b1:.4f} ms back to back = "
+          f"{audio1 / (b2b1 / 1e3):.2f} x real time; {dev_txt} ({card})",
+          flush=True)
+
+    xflat = x1d.reshape(-1)       # 640 distinct blocks
+    at = iter(range(10 ** 6))
+
+    def step1(_):
+        i = next(at) % (xflat.numel() // BLOCK)
+        c1.process_block(xflat[i * BLOCK:(i + 1) * BLOCK])
+
+    c1.reset()
+    for i in range(8):
+        step1(i)
+    runs = [per_block_ms(step1, 64, False) for _ in range(3)]
+    devo = [per_block_ms(step1, 1, True) for _ in range(20)]
+    worsts = [max(r) for r in runs]
+    worst = statistics.median(worsts)
+    dev_txt = ("device-only not resolved (host slower than the spin)"
+               if None in devo else
+               f"device-only mean {statistics.mean(t[0] for t in devo):.4f} "
+               f"ms, max {max(t[0] for t in devo):.4f} ms")
+    print(f"latency config #1 process_block: back to back mean "
+          f"{statistics.mean(t for r in runs for t in r):.4f} ms, worst "
+          + " / ".join(f"{w:.4f}" for w in worsts) + f" ms, median worst "
+          f"{worst:.4f} ms ({DEADLINE_MS / worst:.1f}x inside the "
+          f"{DEADLINE_MS:.4f} ms deadline); {dev_txt} ({card})", flush=True)
+    if not worst < DEADLINE_MS:
+        fail(f"config #1: median worst block {worst:.4f} ms misses the "
+             f"{DEADLINE_MS:.4f} ms deadline")
+    where_time_goes("config #1 process, T = 32768 (mean of 8 renders)",
+                    lambda i: c1.process(x1d[2 + i]), 8)
+    where_time_goes("config #1 process_block (mean of 64 blocks)", step1, 64)
+
+    # (b) the narrow queue (dtype bfloat16, float16) at the headline's
+    # geometry: 64 ch x 32768 taps, block 512, P = 64; 64 blocks with an
+    # exchange of every IR at block 32.  K9 on the stream's own stored
+    # queue against its plain version (>= 110 dB: both widen the same
+    # values), and the whole kernel path against the plain path at the
+    # same dtype.  The two paths' float32 windows differ in their last
+    # bits (K3 is not torch.fft), so a few queue entries round to the
+    # neighbouring narrow value: each differing entry must be one step of
+    # the narrow type apart, and the outputs >= 80 dB apart (the bar of
+    # the CPU tests' port-against-JAX narrow streams, the same cause).
+    # The distance from the float32 engine and from float64 is printed
+    gq1, gq2 = exp_irs(rng16, C, N), exp_irs(rng16, C, N)
+    NBQ, SWQ = 64, 32
+    xq = rng16.standard_normal((C, NBQ * BLOCK)).astype(np.float32)
+    xqd = torch.from_numpy(xq).to(dev)
+
+    def narrow_stream(dt):
+        conv = BlockConvolver(gq1, BLOCK, dtype=dt, device=dev)
+        torch.cuda.synchronize()
+        ops_hook.reset_counts()
+        ys = []
+        for i in range(NBQ):
+            if i == SWQ:
+                conv.set_filter(gq2)
+            ys.append(conv.process_block(xqd[:, i * BLOCK:(i + 1) * BLOCK]))
+        y = torch.cat(ys, dim=-1)
+        torch.cuda.synchronize()
+        return y.cpu().numpy(), conv, ops_hook.counts()
+
+    def one_step_apart(qa, qb, mantissa_bits: int):
+        """How many entries of two narrow queues differ, and how many of
+        them by more than one step of the type at their magnitude (plus
+        1e-6 of the queue's rms, for a sign that differs at zero)."""
+        qa, qb = qa.float(), qb.float()
+        big = torch.maximum(qa.abs(), qb.abs()).clamp_min(1e-30)
+        step = torch.exp2(torch.floor(torch.log2(big)) - mantissa_bits)
+        d = (qa - qb).abs()
+        far = d > step + 1e-6 * float(qb.pow(2).mean().sqrt())
+        return int((d != 0).sum()), int(far.sum())
+
+    y32q = narrow_stream(torch.float32)[0]
+    models = {ch: fade(conv64(xq[ch], gq1[ch]), conv64(xq[ch], gq2[ch]),
+                       SWQ * BLOCK, BLOCK) for ch in CHECKED}
+    for name, dt, bits in (("rotated_mac_bf16", torch.bfloat16, 7),
+                           ("rotated_mac_f16", torch.float16, 10)):
+        yk, kconv, counts = narrow_stream(dt)
+        label = f"BlockConvolver dtype={str(dt)[6:]}, 64 blocks + exchange"
+        check_path(label, counts, {"rfft_half", name, "irfft_tail"})
+        kq = kconv.state.queue
+        if counts["launches"]["rotated_mac"] or kq.dtype != dt:
+            fail(f"{label}: the float32 K9 ran or the queue is {kq.dtype}")
+        s9 = min(snr_db(
+            k79.rotated_mac_plain(kq, kconv.H, slot).cpu().numpy(),
+            k79.rotated_mac_cuda(kq, kconv.H, slot).cpu().numpy())
+            for slot in (kconv.state.step % kconv.nparts, 0))
+        use("plain")
+        yp, pconv, pcounts = narrow_stream(dt)
+        use("kernels")
+        if pcounts["plain"][name] != NBQ + 1:
+            fail(f"{label}, plain: {pcounts['plain']}")
+        ndiff, nfar = one_step_apart(kq, pconv.state.queue, bits)
+        s = snr_db(yp, yk)
+        print(f"{label}: K9 on the stream's queue against its plain version "
+              f">= {s9:.2f} dB; kernels against the plain versions {s:.2f} "
+              f"dB, their queues apart in {ndiff} of {kq.numel()} entries, "
+              f"{nfar} of them by more than one step; "
+              + "; ".join(f"channel {ch} {snr_db(y32q[ch], yk[ch]):.2f} dB "
+                          f"against the float32 engine, "
+                          f"{snr_db(models[ch], yk[ch]):.2f} dB against "
+                          f"float64" for ch in CHECKED), flush=True)
+        if not s9 >= 110.0:
+            fail(f"{label}: K9 {s9:.2f} dB < 110 on the stream's queue")
+        if nfar or ndiff > 1e-2 * kq.numel():
+            fail(f"{label}: the paths' queues differ beyond rounding")
+        if not s >= 80.0 or not np.all(np.isfinite(yk)):
+            fail(f"{label}: {s:.2f} dB < 80 against the plain path")
+        r = results[name]
+        print(f"  {name}: {r['ms']:.4f} ms a launch, bound {r['bound_ms']:.4f}"
+              f" ms; float32 K9 {results['rotated_mac']['ms']:.4f} ms, bound "
+              f"{results['rotated_mac']['bound_ms']:.4f} ms ({card})",
+              flush=True)
+
+    # (c) irfft_planes on the card, spectra with nonzero imaginary parts at
+    # DC and Nyquist, against the CPU; the same spectra straight into
+    # torch.fft.irfft read far lower where cuFFT's C2R uses those parts
+    # (the render shapes among them)
+    lowest_raw = float("inf")
+    for lead, n in (((48, 64), 1024), ((64,), 1024), ((64,), 4096),
+                    ((6, 64), 8192), ((1,), 8192), ((3,), 65536)):
+        sp = torch.from_numpy(rng16.standard_normal(
+            (2, *lead, n // 2 + 1)).astype(np.float32))
+        want = irfft_planes(sp, n).numpy()
+        spd = sp.to(dev)
+        got = irfft_planes(spd, n).cpu().numpy()
+        raw = torch.fft.irfft(torch.complex(spd[0], spd[1]), n=n).cpu().numpy()
+        s, s_raw = snr_db(want, got), snr_db(want, raw)
+        lowest_raw = min(lowest_raw, s_raw)
+        print(f"irfft_planes rows={lead} n={n} on the card: {s:.2f} dB "
+              f"against the CPU; torch.fft.irfft of the same spectra "
+              f"{s_raw:.2f} dB", flush=True)
+        if not s >= 110.0:
+            fail(f"irfft_planes rows={lead} n={n}: {s:.2f} dB < 110")
+    if not lowest_raw < 100.0:
+        fail("irfft_planes: no shape shows cuFFT using the DC and Nyquist "
+             "imaginary parts, so nothing shows the zeroing at work")
+    del c1, x1d, xqd
+    torch.cuda.empty_cache()
 
     for name in results:
         results[name]["launches"] = sum(c[name] for c in path_launches)

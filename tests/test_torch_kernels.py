@@ -716,7 +716,9 @@ def test_mac_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="shape"):
         k79.rotated_mac_cuda(V, H, 0)
     with pytest.raises(ValueError, match="dtype"):
-        k79.rotated_mac_cuda(H.half(), H, 0)
+        k79.rotated_mac_cuda(H.double(), H, 0)          # float32/16, bf16
+    with pytest.raises(ValueError, match="dtype"):
+        k79.rotated_mac_cuda(H, H.half(), 0)            # H is float32
     with pytest.raises(ValueError, match="contiguous"):
         k79.rotated_mac_cuda(H, H.transpose(2, 3).contiguous().transpose(2, 3),
                              0)
@@ -737,6 +739,8 @@ def test_dispatch_takes_plain_versions_on_cpu_and_counts(rng):
     ops_hook.delayed_add(ins[0], torch.zeros(2, C, B), torch.zeros(2, C, B))
     ops_hook.head_mac(torch.zeros(2, 3, C, 9), q, 1)
     ops_hook.rotated_mac(q, q, 1)
+    ops_hook.rotated_mac(q.bfloat16(), q, 1)
+    ops_hook.rotated_mac(q.half(), q, 1)
     counts = ops_hook.counts()
     assert counts["plain"] == dict.fromkeys(counts["plain"], 1)
     assert counts["launches"] == dict.fromkeys(counts["launches"], 0)
