@@ -1,9 +1,11 @@
 """Multichannel delay and ring buffers with sample-format edges.
 
-The counterpart of the JAX package's ``buffers/delay.py``: a float32
-``[C, L]`` ring on the device (:mod:`~bbcat_dsp_torch.buffers.ring`) and
-packed sample formats only at the host edge (``write_packed`` /
-``read_packed`` through :mod:`~bbcat_dsp_torch.formats.host`).
+The counterpart of the JAX package's ``buffers/delay.py``: a ``[C, L]``
+ring on the device (:mod:`~bbcat_dsp_torch.buffers.ring`), float32 or,
+with ``dtype``, bfloat16 or float16 (a write rounds to it, a read returns
+it), and packed sample formats only at the host edge (``write_packed`` /
+``read_packed`` through :mod:`~bbcat_dsp_torch.formats.host`, which read
+and write float32 frames).
 
 * :class:`SoundDelayBuffer` writes at a cursor and reads ``delay`` frames
   behind it, any number of times.
@@ -46,10 +48,11 @@ class SoundDelayBuffer:
     """A delay line: one write cursor, delayed reads that consume
     nothing."""
 
-    def __init__(self, nchannels: int, length: int, *, device):
+    def __init__(self, nchannels: int, length: int, dtype=torch.float32, *,
+                 device):
         self.nchannels = nchannels
         self.length = int(length)
-        self.ring = ring_init((nchannels,), self.length, device=device)
+        self.ring = ring_init((nchannels,), self.length, dtype, device=device)
 
     @property
     def write_position(self) -> int:
@@ -100,8 +103,9 @@ class SoundDelayBuffer:
 
     def read_packed(self, fmt: SampleFormat, big_endian: bool, delay: int,
                     nframes: int) -> np.ndarray:
-        """Delayed frames as interleaved packed bytes."""
-        frames = self.read(delay, nframes).T.contiguous().cpu().numpy()
+        """Delayed frames as interleaved packed bytes (a narrow ring's
+        frames widened to float32 first)."""
+        frames = self.read(delay, nframes).T.float().contiguous().cpu().numpy()
         out = np.zeros(frames.size * get_bytes_per_sample(fmt), np.uint8)
         transfer_samples(frames.view(np.uint8).reshape(-1), SampleFormat.FLOAT,
                          False, 0, self.nchannels, out, fmt, big_endian, 0,
@@ -113,8 +117,9 @@ class SoundRingBuffer(SoundDelayBuffer):
     """A FIFO: a read cursor that consumes, and writes and reads clamped to
     what is free and what is there."""
 
-    def __init__(self, nchannels: int, length: int, *, device):
-        super().__init__(nchannels, length, device=device)
+    def __init__(self, nchannels: int, length: int, dtype=torch.float32, *,
+                 device):
+        super().__init__(nchannels, length, dtype, device=device)
         self.readpos = 0
 
     def read_frames_available(self) -> int:

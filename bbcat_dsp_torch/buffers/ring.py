@@ -17,6 +17,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.precision import storage_dtype
+
 __all__ = ["Ring", "ring_init", "ring_write", "ring_read_delayed",
            "ring_advance"]
 
@@ -26,9 +28,12 @@ class Ring(NamedTuple):
     writepos: int        # samples written or skipped so far (never wraps)
 
 
-def ring_init(shape, length: int, *, device) -> Ring:
-    """A silent float32 ring of ``length`` samples for a batch ``shape``."""
-    return Ring(torch.zeros(tuple(shape) + (int(length),), device=device), 0)
+def ring_init(shape, length: int, dtype=torch.float32, *, device) -> Ring:
+    """A silent ring of ``length`` samples for a batch ``shape``, stored in
+    ``dtype`` (float32, bfloat16 or float16): a write rounds to it."""
+    return Ring(torch.zeros(tuple(shape) + (int(length),),
+                            dtype=storage_dtype(dtype, "ring"), device=device),
+                0)
 
 
 def ring_write(ring: Ring, block: torch.Tensor) -> Ring:
@@ -39,6 +44,7 @@ def ring_write(ring: Ring, block: torch.Tensor) -> Ring:
     if B > L:
         raise ValueError(f"block ({B}) longer than ring ({L})")
     start = ring.writepos % L
+    # the one rounding of a narrow ring
     blk = block.to(ring.data.dtype).expand(ring.data.shape[:-1] + (B,))
     over = start + B - L          # samples that wrap to the front
     if over <= 0:

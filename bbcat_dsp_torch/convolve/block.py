@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import ops_hook
+from ..utils.precision import DTYPES, storage_dtype
 from .fft import half_window_signs, spectral_nbins
 
 __all__ = [
@@ -49,24 +50,14 @@ __all__ = [
 ]
 
 
-# the spectral queue's storage types; the JAX package with 64-bit types
-# off quietly makes float32 of a float64 request, the port refuses it
-QUEUE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# the spectral queue's storage types (``utils.precision.DTYPES``)
+QUEUE_DTYPES = DTYPES
 
 
 class ConvolverState(NamedTuple):
     queue: torch.Tensor  # [2, P, C, F] spectra of past input blocks
     prev: torch.Tensor   # [2, C, F] half-window spectrum of the last block
     step: int            # blocks processed (queue write cursor)
-
-
-def queue_dtype(dtype) -> torch.dtype:
-    """``dtype`` if the spectral queue can be stored in it, else
-    ``ValueError``."""
-    if dtype not in QUEUE_DTYPES:
-        raise ValueError(f"queue dtype {dtype}: the convolvers store their "
-                         f"queue in one of {QUEUE_DTYPES}")
-    return dtype
 
 
 def partition_ir(ir, block: int, nparts: int | None = None, *,
@@ -114,7 +105,7 @@ def convolver_init(nchannels: int, block: int, nparts: int,
     """The state of silence, queue and ``prev`` of ``dtype`` (one of
     :data:`QUEUE_DTYPES`); after a block ``prev`` is float32."""
     F = spectral_nbins(2 * block)
-    dtype = queue_dtype(dtype)
+    dtype = storage_dtype(dtype, "queue")
     return ConvolverState(
         queue=torch.zeros((2, nparts, nchannels, F), dtype=dtype,
                           device=device),
@@ -216,7 +207,7 @@ class BlockConvolver:
 
     def __init__(self, ir, block: int, nchannels: int | None = None,
                  nparts: int | None = None, dtype=torch.float32, *, device):
-        self.dtype = queue_dtype(dtype)
+        self.dtype = storage_dtype(dtype, "queue")
         ir2 = np.atleast_2d(np.asarray(ir))
         if nchannels is None:
             nchannels = ir2.shape[0]

@@ -92,11 +92,11 @@ def irfft_planes(planes: torch.Tensor, n: int) -> torch.Tensor:
     return torch.fft.irfft(_real_spectrum(planes, n), n=n, dim=-1)
 
 
-def irfft_tail_planes(planes: torch.Tensor, n: int) -> torch.Tensor:
+def irfft_tail_planes(spec_planes: torch.Tensor, n: int) -> torch.Tensor:
     """Inverse rFFT of ``[2, ..., n//2 + 1]`` planes, returning only the
     last ``n // 2`` samples (DC and Nyquist as :func:`irfft_planes` takes
     them)."""
-    return irfft_planes(planes, n)[..., n // 2:]
+    return irfft_planes(spec_planes, n)[..., n // 2:]
 
 
 def cmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

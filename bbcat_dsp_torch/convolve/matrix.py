@@ -31,14 +31,13 @@ import numpy as np
 import torch
 
 from .. import ops_hook
-from ..utils.precision import full_f32
+from ..utils.precision import full_f32, storage_dtype
 from .block import (
     ConvolverState,
     _push,
     _ramp,
     _roll_slots,
     convolver_init,
-    queue_dtype,
 )
 from .fft import half_window_signs
 
@@ -166,7 +165,7 @@ class MatrixConvolver:
 
     def __init__(self, ir_matrix, block: int, nparts: int | None = None,
                  dtype=torch.float32, *, device):
-        self.dtype = queue_dtype(dtype)
+        self.dtype = storage_dtype(dtype, "queue")
         self.device = torch.device(device)
         self.block = int(block)
         self.H = partition_ir_matrix(ir_matrix, self.block, nparts,

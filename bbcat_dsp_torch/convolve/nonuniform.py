@@ -22,6 +22,15 @@ the head of a crossfade or of one small block is K3, K7, K4, and every
 per-super-step tail is K3, K7, K4.  On CPU tensors the same calls run the
 kernels' plain versions.
 
+``dtype`` bfloat16 or float16 stores the tail queue narrow, as the JAX
+package's engine does once a block has run: a super-step reads it widened
+to float32 and rounds only the half spectrum it writes; everything else
+is float32 and the kernels see float32 operands.  Only
+:meth:`NonUniformConvolver.process_block` (with :meth:`~NonUniformConvolver.
+set_filter`) runs narrow, as in the reference, whose narrow ``process``
+and ``process_small_block`` fail with a ``TypeError``: here they raise a
+``ValueError`` that says so.
+
 The functions (:func:`nonuniform_render`, :func:`nonuniform_spectra`) are
 the training surface, as in the JAX package: they are differentiable in
 reverse and in forward mode through the kernels
@@ -47,6 +56,7 @@ from .block import (
     ir_spectra,
     partition_ir,
 )
+from ..utils.precision import storage_dtype
 from .fft import half_window_signs, spectral_nbins
 
 __all__ = [
@@ -127,7 +137,9 @@ def _tail_step_xt(state: ConvolverState, H, x, H_old=None):
     xt = ops_hook.rfft_half(x, 2 * B2)                     # [2, C, F]
     s = half_window_signs(2 * B2, x.device)
     slot = state.step % Pt
-    tseq = torch.cat([_roll_slots(state.queue, slot), xt[:, None]], dim=1)
+    # a narrow queue widens here
+    tseq = torch.cat([_roll_slots(state.queue, slot).float(), xt[:, None]],
+                     dim=1)
     w = _tail_windows_from_xt(tseq, s)                     # W(step-Pt+1..step)
     # out = sum_p W(step - p) * H[p]: the head MAC's contract over the
     # windows behind one never-read slot
@@ -141,7 +153,7 @@ def _tail_step_xt(state: ConvolverState, H, x, H_old=None):
         r = _ramp(B2, x.device)
         y = (1 - r) * run(H_old) + r * y
     queue = state.queue.clone()
-    queue[:, slot] = xt
+    queue[:, slot] = xt.to(queue.dtype)      # the one rounding of the step
     return ConvolverState(queue, xt, state.step + 1), y
 
 
@@ -291,18 +303,15 @@ class NonUniformConvolver:
 
     :meth:`set_filter` schedules an exchange that the next
     ``process_block`` or ``process_small_block`` fades in; ``process``
-    leaves it scheduled, as the reference does.  ``dtype`` takes
-    float32 only: any other raises ``ValueError``."""
+    leaves it scheduled, as the reference does.  ``dtype`` is the tail
+    queue's storage type: float32, or bfloat16 or float16, with which only
+    :meth:`process_block` runs (the other two raise ``ValueError``, where
+    the reference's raise ``TypeError``)."""
 
     def __init__(self, ir, block: int, ratio: int = 8,
                  nchannels: int | None = None, dtype=torch.float32, *,
                  device):
-        if dtype != torch.float32:
-            raise ValueError(
-                f"dtype {dtype}: the two-level engine keeps its state in "
-                "float32 only (a narrow tail queue would need a tail MAC, "
-                "K2, that reads one; the reference's narrow engine fails "
-                "in process and process_small_block)")
+        self.dtype = storage_dtype(dtype, "queue")
         ir2 = np.atleast_2d(np.asarray(ir))
         if nchannels is None:
             nchannels = ir2.shape[0]
@@ -359,8 +368,26 @@ class NonUniformConvolver:
             raise ValueError(f"{what} of {x.shape[-1]} samples, expected {n}")
         return x.contiguous()
 
+    def _float32_only(self, call: str) -> None:
+        if self.dtype != torch.float32:
+            raise ValueError(
+                f"{call} on a {self.dtype} engine: the reference's narrow "
+                f"two-level engine fails there with a TypeError (a carry "
+                f"that changes type), so the port runs only process_block "
+                f"with a narrow tail queue; build the engine in float32 for "
+                f"{call}")
+
+    def _widened(self, st: NonUniformState) -> NonUniformState:
+        """``st`` with every leaf but the tail queue in float32: the
+        kernels' operands (a state file of a fresh narrow JAX engine holds
+        them narrow, all zeros)."""
+        return NonUniformState(st.xcarry.float(), st.prev.float(),
+                               st.tail._replace(prev=st.tail.prev.float()),
+                               st.pending.float())
+
     def process(self, x) -> torch.Tensor:
         """Whole-signal render of ``x [C, T]``."""
+        self._float32_only("process")
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         self.state, y = nonuniform_render(self.state, self.H_head,
                                           self.H_tail, x.contiguous(),
@@ -373,6 +400,8 @@ class NonUniformConvolver:
         if self._sb_fill:
             raise ValueError("process_block cannot start mid-way through "
                              "a super-block of small blocks")
+        if self.dtype != torch.float32:
+            self.state = self._widened(self.state)
         if self._pending_swap is not None:
             Hh, Ht = self._pending_swap
             self.state, y = _super_step_crossfade(
@@ -388,6 +417,7 @@ class NonUniformConvolver:
         """Low-latency streaming: one small block ``x [C, block]`` in and
         out.  An exchange fades the head in over this block and the tail
         over its next firing."""
+        self._float32_only("process_small_block")
         B = self.block
         x = self._input(x, B, "small block")
         st = self.state
@@ -419,9 +449,11 @@ class NonUniformConvolver:
         return y
 
     def reset(self) -> None:
-        """Restart the stream from silence.  An exchange still scheduled,
-        or whose tail half has not fired yet, takes effect at once: there
-        is no past output left to fade from."""
+        """Restart the stream from silence, the tail queue in the engine's
+        ``dtype`` (the reference's ``reset`` takes the type of ``prev``,
+        float32 after a block).  An exchange still scheduled, or whose tail
+        half has not fired yet, takes effect at once: there is no past
+        output left to fade from."""
         if self._pending_swap is not None:
             self.H_head, self._tail_swap = self._pending_swap
         if self._tail_swap is not None:
@@ -435,6 +467,8 @@ class NonUniformConvolver:
             xcarry=torch.zeros((2, self.head_parts, C, F), device=dev),
             prev=torch.zeros((2, C, F), device=dev),
             tail=convolver_init(C, self.super_block, self.tail_parts,
-                                device=dev),
+                                self.dtype, device=dev)._replace(
+                prev=torch.zeros((2, C, spectral_nbins(2 * self.super_block)),
+                                 device=dev)),
             pending=torch.zeros((2, C, self.super_block), device=dev),
         )

@@ -16,6 +16,12 @@ float32 throughout, ``mod`` on them is :func:`torch.remainder` (the sign
 of the divisor), and callers reduce integer sample counts modulo the
 buffer's length before they meet a float.
 
+A buffer stored in bfloat16 or float16 reads as the JAX package reads it
+there: the table rounded to the buffer's type, the output in that type.
+:func:`fractional_read` rounds each of the 14 products, sums them in
+float32 and rounds once; :func:`fractional_read_stream` accumulates tap by
+tap in the narrow type, each product and each sum rounded.
+
 The coefficient table is this package's own copy of the reference's filter
 data, 1792 values that are exact multiples of 2^-23, stored as q23 int32
 in ``data/polyphase_sinc_14x128_q23.npy`` (layout ``[tap * 128 + phase]``).
@@ -30,6 +36,7 @@ import numpy as np
 import torch
 
 from ..buffers.ring import Ring, ring_write
+from ..utils.precision import NARROW, storage_dtype
 
 __all__ = ["OVERSAMPLING", "TAPS", "ADDITIONAL_DELAY", "polyphase_table",
            "additional_delay_required", "fractional_read",
@@ -52,11 +59,14 @@ def polyphase_table() -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _table_phase_major(device: torch.device) -> torch.Tensor:
-    """The table as float32 ``[phase, tap]`` on ``device`` (exact: q23
-    values fit float32), made once per device."""
+def _table_phase_major(device: torch.device,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The table as ``[phase, tap]`` on ``device``, made once per device
+    and type: float32 is exact (q23 values fit it), a narrow type rounds
+    the float32 table."""
     t = polyphase_table().reshape(TAPS, OVERSAMPLING).T
-    return torch.from_numpy(np.ascontiguousarray(t, np.float32)).to(device)
+    return torch.from_numpy(np.ascontiguousarray(t, np.float32)).to(
+        device).to(dtype)
 
 
 def additional_delay_required() -> int:
@@ -90,8 +100,13 @@ def fractional_read(buf: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     # gathered along the ring axis: no [..., n, length] copy of the ring
     flat = idx.expand(batch + (n, TAPS)).reshape(batch + (n * TAPS,))
     gathered = torch.gather(buf.expand(batch + (length,)), -1, flat)
-    weights = _table_phase_major(buf.device)[phase]            # [..., n, 14]
-    return (gathered.reshape(batch + (n, TAPS)) * weights).sum(-1)
+    gathered = gathered.reshape(batch + (n, TAPS))
+    weights = _table_phase_major(buf.device, buf.dtype)[phase]  # [..., n, 14]
+    if buf.dtype in NARROW:
+        # each product rounded to the narrow type, the sum in float32 and
+        # rounded once, as the reference's jnp.sum of a narrow operand
+        return (gathered * weights).float().sum(-1).to(buf.dtype)
+    return (gathered * weights).sum(-1)
 
 
 def fractional_read_stream(buf: torch.Tensor, start_pos: torch.Tensor,
@@ -111,7 +126,13 @@ def fractional_read_stream(buf: torch.Tensor, start_pos: torch.Tensor,
     span = torch.arange(out_len + TAPS - 1, device=buf.device)
     slab = torch.gather(buf, -1, torch.remainder(base[..., None] + span,
                                                  length))
-    w = _table_phase_major(buf.device)[phase]                  # [..., 14]
+    w = _table_phase_major(buf.device, buf.dtype)[phase]       # [..., 14]
+    if buf.dtype in NARROW:
+        # tap by tap in the narrow type: each product and sum rounds to it
+        out = torch.zeros_like(slab[..., :out_len])
+        for k in range(TAPS):
+            out = out + w[..., k, None] * slab[..., k:k + out_len]
+        return out
     # windows of the slab as a view; the product is elementwise
     return (slab.unfold(-1, TAPS, 1) * w[..., None, :]).sum(-1)
 
@@ -119,11 +140,15 @@ def fractional_read_stream(buf: torch.Tensor, start_pos: torch.Tensor,
 class FractionalDelayLine:
     """A streaming fractional delay: a circular write head and fractional
     reads behind it.  The buffer must be at least the longest delay plus
-    :data:`ADDITIONAL_DELAY` long."""
+    :data:`ADDITIONAL_DELAY` long.  ``dtype`` (float32, bfloat16 or
+    float16) is the buffer's and the reads' type."""
 
-    def __init__(self, nchannels: int, length: int, *, device):
+    def __init__(self, nchannels: int, length: int, dtype=torch.float32, *,
+                 device):
         self.length = int(length)
-        self.buf = torch.zeros((nchannels, self.length), device=device)
+        self.buf = torch.zeros((nchannels, self.length),
+                               dtype=storage_dtype(dtype, "buffer"),
+                               device=device)
         self.writepos = 0   # samples written so far, on the host
 
     def write(self, block: torch.Tensor) -> None:

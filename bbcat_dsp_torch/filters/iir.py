@@ -28,6 +28,16 @@ A whole static cascade of S biquads also runs in one go, in its parallel
 poles, 2S independent one-pole recurrences on the same two scans, the
 poles as one more batch axis (:func:`parallel_cascade_apply`).
 
+Parameters in bfloat16 or float16 (``modal_params(..., dtype=...)``,
+``parallel_cascade_params(coeffs, dtype)``), or a signal in one, take the
+JAX package's narrow arithmetic, written out step by step rather than
+left to promotion: the pole powers by its doubling in the parameters'
+type, the scans by its odd-even recursion (``jax.lax.associative_scan``)
+with the maps' poles in that type, and everything else in the type the
+reference computes mixed operands in (float32 against a float32 signal,
+the narrow type where signal, parameters and state all are).  A float32
+or float64 engine never enters that path.
+
 Every function works on ``[..., T]`` tensors, time last, with the state as
 explicit tensors: a stream continues across calls.  :func:`modal_apply`
 is differentiable in both modes, in the signal, the parameters and the
@@ -45,7 +55,8 @@ import numpy as np
 import torch
 
 from ..ops.autograd import needs_derivative
-from ..utils.precision import full_f32
+from ..utils.precision import (NARROW, full_f32, host_tensor, promoted,
+                               storage_dtype)
 
 __all__ = ["ModalParams", "ModalState", "modal_params", "modal_init",
            "modal_apply", "modal_from_df2t", "ParallelCascadeParams",
@@ -58,7 +69,7 @@ _TOEP_CHUNK = 128
 
 
 class ModalParams(NamedTuple):
-    """Pole-factored biquad parameters, float32, all of one shape."""
+    """Pole-factored biquad parameters, all of one shape and type."""
 
     b0: torch.Tensor   # direct gain
     d1: torch.Tensor   # numerator FIR tap 1 (b1 - a1 b0)
@@ -83,11 +94,14 @@ class ModalState(NamedTuple):
 
 def modal_params(coeffs, *, device, dtype=torch.float32) -> ModalParams:
     """Factor ``[..., 5]`` coefficients ``[b0, b1, b2, a1, a2]`` into poles
-    and numerator FIR, ``dtype`` (float32 or float64) on ``device``.
+    and numerator FIR, ``dtype`` (float32, bfloat16, float16, or float64,
+    in which the port computes) on ``device``.
 
-    The roots are found in float64 on the host.  Pass the float64 design:
-    rounding the coefficients to float32 first costs about 30 dB for
-    near-real pole pairs, through cancellation in the discriminant."""
+    The roots are found in float64 on the host and rounded once to
+    ``dtype``.  Pass the float64 design: rounding the coefficients to
+    float32 first costs about 30 dB for near-real pole pairs, through
+    cancellation in the discriminant."""
+    dtype = storage_dtype(dtype, "modal_params", float64=True)
     c = np.asarray(coeffs, np.float64)
     b0, b1, b2, a1, a2 = np.moveaxis(c, -1, 0)
     d1 = b1 - a1 * b0
@@ -98,14 +112,21 @@ def modal_params(coeffs, *, device, dtype=torch.float32) -> ModalParams:
 
     # one copy to the device; the seven fields are slices of it
     host = np.stack([b0, d1, d2, p1.real, p1.imag, p2.real, p2.imag])
-    return ModalParams(*torch.from_numpy(host).to(dtype).to(device).unbind(0))
+    return ModalParams(*host_tensor(host, dtype, device).unbind(0))
 
 
-def modal_init(params: ModalParams, batch_shape=()) -> ModalState:
+def modal_init(params: ModalParams, batch_shape=(),
+               dtype=None) -> ModalState:
     """Silence: a zero state for a batch ``batch_shape`` broadcast with the
-    parameters' shape, on the parameters' device."""
+    parameters' shape, on the parameters' device, in ``dtype``: by
+    default float64 for float64 parameters, else float32 (the reference's
+    default)."""
+    if dtype is None:
+        dtype = (torch.float64 if params.b0.dtype == torch.float64
+                 else torch.float32)
+    dtype = storage_dtype(dtype, "modal_init", float64=True)
     shape = torch.broadcast_shapes(tuple(batch_shape), params.b0.shape)
-    return ModalState(*(torch.zeros(shape, dtype=params.b0.dtype,
+    return ModalState(*(torch.zeros(shape, dtype=dtype,
                                     device=params.b0.device)
                         for _ in ModalState._fields))
 
@@ -215,6 +236,27 @@ def _cpx_affine_scan_const(pw, M, qw, v, s0):
     return s.reshape(K, Bb, T)
 
 
+def _toeplitz_layout(T: int, b: tuple, ps: tuple):
+    """The modal engine's gate for the Toeplitz branch, the JAX package's:
+    T a multiple of 128, T >= 256, at most 128 pole sets ``ps`` trailing
+    the batch ``b``.  Then ``(to_kbt, from_kbt, K)``: ``[lead..., K, ...]``
+    <-> ``[K, lead, ...]``, so each pole's chunk matrices batch on K;
+    else None."""
+    kn = math.prod(ps)
+    if not (T % _TOEP_CHUNK == 0 and T >= 2 * _TOEP_CHUNK and kn <= 128
+            and b[len(b) - len(ps):] == ps):
+        return None
+    Bf = math.prod(b[:len(b) - len(ps)])
+
+    def to_kbt(a):
+        return a.reshape((Bf, kn) + tuple(a.shape[len(b):])).transpose(0, 1)
+
+    def from_kbt(a):
+        return a.transpose(0, 1).reshape(b + tuple(a.shape[2:]))
+
+    return to_kbt, from_kbt, kn
+
+
 def modal_apply(x: torch.Tensor, params: ModalParams,
                 state: ModalState | None = None):
     """Run a time-invariant biquad in the modal realization over ``x [...,
@@ -222,6 +264,8 @@ def modal_apply(x: torch.Tensor, params: ModalParams,
     T = x.shape[-1]
     if T < 2:
         raise ValueError(f"modal_apply needs T >= 2 samples, got {T}")
+    if x.dtype in NARROW or params.b0.dtype in NARROW:
+        return _modal_apply_narrow(x, params, state)
     if state is None:
         state = modal_init(params, x.shape[:-1])
     b = tuple(torch.broadcast_shapes(x.shape[:-1], params.b0.shape))
@@ -239,20 +283,9 @@ def modal_apply(x: torch.Tensor, params: ModalParams,
     t0 = torch.complex(state.tr, state.ti).expand(b)
     w0 = torch.complex(state.wr, state.wi).expand(b)
 
-    ps = tuple(params.b0.shape)
-    kn = math.prod(ps)
-    if (T % _TOEP_CHUNK == 0 and T >= 2 * _TOEP_CHUNK and kn <= 128
-            and b[len(b) - len(ps):] == ps):
-        # constant poles, pole dims trailing the batch: [lead..., K, T] ->
-        # [K, lead, T], so each pole's chunk matrices batch on K
-        Bf = math.prod(b[:len(b) - len(ps)])
-
-        def to_kbt(a):
-            return a.reshape((Bf, kn) + tuple(a.shape[len(b):])).transpose(0, 1)
-
-        def from_kbt(a):
-            return a.transpose(0, 1).reshape(b + tuple(a.shape[2:]))
-
+    kbt = _toeplitz_layout(T, b, tuple(params.b0.shape))
+    if kbt is not None:
+        to_kbt, from_kbt, kn = kbt
         # both poles' chunk matrices and carry powers at once
         L, n = _TOEP_CHUNK, T // _TOEP_CHUNK
         pw = _pole_powers(poles.reshape(2, kn), L + 1)
@@ -272,10 +305,172 @@ def modal_apply(x: torch.Tensor, params: ModalParams,
     return y, ModalState(*last.unbind(0))
 
 
+# ---- narrow parameters or signals: the JAX package's arithmetic -------------------
+#
+# The reference computes these paths in whatever type JAX promotes each
+# operation to.  Here every operand is cast to that type explicitly
+# (``_in``), so each operation's type is written out: an elementwise
+# operation on bfloat16 or float16 operands rounds its result to their
+# type, a sum of a narrow operand runs in float32 and rounds once (as
+# ``jnp.sum`` does), and a matrix product in a narrow type runs in float32
+# on the widened operands and rounds its result once.  These are the
+# reference's semantics operation by operation (``jax.disable_jit``),
+# which the port meets bit for bit; compiled, XLA:CPU may keep float16
+# values at float32 inside a fusion (see ``tests/test_torch_narrow.py``).
+
+
+def _in(dt: torch.dtype, *ts: torch.Tensor):
+    return tuple(t.to(dt) for t in ts)
+
+
+def _narrow_pole_powers(pr, pi, n: int):
+    """``p^0 .. p^(m-1)`` (``m >= n``, a power of two) along a new last
+    axis, as ``(re, im)`` by the JAX package's doubling in the poles' own
+    type: ``p^(m+k) = p^m p^k``, every product and sum rounded."""
+    powr = torch.ones(pr.shape + (1,), dtype=pr.dtype, device=pr.device)
+    powi = torch.zeros_like(powr)
+    while powr.shape[-1] < n:
+        lr = powr[..., -1] * pr - powi[..., -1] * pi
+        li = powr[..., -1] * pi + powi[..., -1] * pr
+        powr, powi = (
+            torch.cat([powr, lr[..., None] * powr - li[..., None] * powi], -1),
+            torch.cat([powi, lr[..., None] * powi + li[..., None] * powr], -1))
+    return powr, powi
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a`` at the even, ``b`` at the odd places of the last axis (``a``
+    is as long as ``b`` or one longer)."""
+    n = b.shape[-1]
+    pairs = torch.stack([a[..., :n], b], -1).flatten(-2)
+    return torch.cat([pairs, a[..., n:]], -1)
+
+
+def _assoc_scan(compose, elems: tuple) -> tuple:
+    """Inclusive scan of ``elems`` (tensors, time last) under ``compose(f,
+    g)`` (``f`` earlier) by ``jax.lax.associative_scan``'s odd-even
+    recursion: every element is composed in the reference's order, so it
+    rounds where the reference rounds."""
+    n = elems[0].shape[-1]
+    if n < 2:
+        return elems
+    odd = _assoc_scan(compose, compose(tuple(e[..., 0:n - 1:2] for e in elems),
+                                       tuple(e[..., 1::2] for e in elems)))
+    rest = tuple(e[..., 2::2] for e in elems)
+    even = compose(tuple(o[..., :-1] for o in odd) if n % 2 == 0 else odd,
+                   rest)
+    even = tuple(torch.cat([e[..., :1], r], -1) for e, r in zip(elems, even))
+    return tuple(_interleave(a, b) for a, b in zip(even, odd))
+
+
+def _narrow_cpx_scan(ar, ai, vr, vi, s0r, s0i, cd: torch.dtype):
+    """The JAX package's ``_cpx_affine_scan``: ``s[n] = a[n] s[n-1] +
+    v[n]`` along the last axis from ``s0`` (the batch's shape), the maps'
+    ``a`` composed in their own type, ``v`` and ``s`` in ``cd``."""
+
+    def compose(f, g):
+        far, fai, fvr, fvi = f
+        gar, gai, gvr, gvi = g
+        gr, gi = _in(cd, gar, gai)
+        return (gar * far - gai * fai, gar * fai + gai * far,
+                gr * fvr - gi * fvi + gvr, gr * fvi + gi * fvr + gvi)
+
+    car, cai, cvr, cvi = _assoc_scan(compose, (ar, ai) + _in(cd, vr, vi))
+    cr, ci = _in(cd, car, cai)
+    s0r, s0i = (t[..., None] for t in _in(cd, s0r, s0i))
+    return cr * s0r - ci * s0i + cvr, cr * s0i + ci * s0r + cvi
+
+
+def _narrow_bmm(a, m, cd: torch.dtype):
+    """``[K, B, n, L] @ [K, L, L]`` in ``cd``; a narrow ``cd`` runs the
+    product in float32 and rounds its result."""
+    with full_f32():
+        if cd in NARROW:
+            return torch.matmul(a.float(), m.float()[:, None]).to(cd)
+        return torch.matmul(a, m[:, None])
+
+
+def _narrow_scan_const(pr, pi, vr, vi, s0r, s0i, cd: torch.dtype):
+    """The JAX package's ``_cpx_affine_scan_const`` for poles ``pr, pi
+    [K]`` and ``v [K, B, T]`` (``vi`` None for a real input), ``s0 [K,
+    B]``: the chunk matrices from the poles' doubled powers, the products
+    and the carry scan in ``cd``."""
+    K, Bb, T = vr.shape
+    L = _TOEP_CHUNK
+    n = T // L
+    powr, powi = _narrow_pole_powers(pr, pi, 2 * L)          # [K, 2L]
+    idx = _toeplitz_index(L, pr.device)
+    Mr, Mi = (torch.triu(t) for t in _in(cd, powr[:, idx], powi[:, idx]))
+    vcr = vr.to(cd).reshape(K, Bb, n, L)
+    if vi is None:
+        yr, yi = _narrow_bmm(vcr, Mr, cd), _narrow_bmm(vcr, Mi, cd)
+    else:
+        vci = vi.to(cd).reshape(K, Bb, n, L)
+        yr = _narrow_bmm(vcr, Mr, cd) - _narrow_bmm(vci, Mi, cd)
+        yi = _narrow_bmm(vcr, Mi, cd) + _narrow_bmm(vci, Mr, cd)
+    er, ei = yr[..., -1], yi[..., -1]                        # [K, B, n]
+    cr, ci = _narrow_cpx_scan(powr[:, L, None, None].expand(er.shape),
+                              powi[:, L, None, None].expand(er.shape),
+                              er, ei, s0r, s0i, cd)
+    s0r, s0i = _in(cd, s0r, s0i)
+    cpr = torch.cat([s0r[..., None], cr[..., :-1]], -1)      # carry into m
+    cpi = torch.cat([s0i[..., None], ci[..., :-1]], -1)
+    pwr, pwi = _in(cd, powr[:, None, None, 1:L + 1], powi[:, None, None, 1:L + 1])
+    sr = yr + pwr * cpr[..., None] - pwi * cpi[..., None]
+    si = yi + pwr * cpi[..., None] + pwi * cpr[..., None]
+    return sr.reshape(K, Bb, T), si.reshape(K, Bb, T)
+
+
+def _modal_apply_narrow(x, params: ModalParams, state: ModalState | None):
+    """:func:`modal_apply` where the parameters or the signal are bfloat16
+    or float16: the JAX package's ``modal_apply`` step by step, in the
+    type it promotes each operand to (``cd``: float32 against a float32
+    signal or state, the narrow type where all three are narrow).  The
+    output and the state are in ``cd``."""
+    T = x.shape[-1]
+    if state is None:
+        state = modal_init(params, x.shape[:-1], x.dtype)
+    cd = promoted(x.dtype, params.b0.dtype, *(t.dtype for t in state))
+    b = tuple(torch.broadcast_shapes(x.shape[:-1], params.b0.shape))
+    full = b + (T,)
+    (xb,) = _in(cd, x.expand(full))
+    x1, x2 = (t.expand(b)[..., None] for t in _in(cd, state.x1, state.x2))
+    xm1 = torch.cat([x1, xb[..., :-1]], -1)
+    xm2 = torch.cat([x2, x1, xb[..., :-2]], -1)
+    d1, d2, b0 = (t[..., None] for t in _in(cd, params.d1, params.d2,
+                                            params.b0))
+    v = d1 * xm1 + d2 * xm2
+    s0 = tuple(t.expand(b) for t in _in(cd, state.tr, state.ti, state.wr,
+                                        state.wi))
+    ps = tuple(params.b0.shape)
+    kbt = _toeplitz_layout(T, b, ps)
+    if kbt is not None:
+        to_kbt, from_kbt, kn = kbt
+        p1r, p1i, p2r, p2i = (t.reshape(kn) for t in (params.p1r, params.p1i,
+                                                      params.p2r, params.p2i))
+        tr, ti = _narrow_scan_const(p1r, p1i, to_kbt(v), None,
+                                    to_kbt(s0[0]), to_kbt(s0[1]), cd)
+        wr, wi = _narrow_scan_const(p2r, p2i, tr, ti, to_kbt(s0[2]),
+                                    to_kbt(s0[3]), cd)
+        tr, ti, wr, wi = (from_kbt(t) for t in (tr, ti, wr, wi))
+    else:
+        # the poles along time, broadcast: the maps' products are one a
+        # pole set, shared by the batch
+        p1r, p1i, p2r, p2i = (t[..., None].expand(ps + (T,)) for t in
+                              (params.p1r, params.p1i, params.p2r, params.p2i))
+        tr, ti = _narrow_cpx_scan(p1r, p1i, v, torch.zeros_like(v), s0[0],
+                                  s0[1], cd)
+        wr, wi = _narrow_cpx_scan(p2r, p2i, tr, ti, s0[2], s0[3], cd)
+    y = b0 * xb + wr
+    last = torch.stack([xb[..., -1], xm1[..., -1], tr[..., -1], ti[..., -1],
+                        wr[..., -1], wi[..., -1]])
+    return y, ModalState(*last.unbind(0))
+
+
 class ParallelCascadeParams(NamedTuple):
     """The parallel (partial-fraction) form of a whole biquad cascade:
     ``H(u) = c + sum_j r_j / (1 - p_j u)`` over its ``K = 2 S`` simple
-    poles, float32 on one device."""
+    poles, of one type on one device."""
 
     c: torch.Tensor    # [] direct gain
     pr: torch.Tensor   # [K] poles (real, imaginary)
@@ -291,11 +486,12 @@ class ParallelCascadeState(NamedTuple):
     si: torch.Tensor
 
 
-def parallel_cascade_params(coeffs, *, device,
-                            min_pole_dist: float = 1e-4
-                            ) -> ParallelCascadeParams:
+def parallel_cascade_params(coeffs, dtype=torch.float32,
+                            min_pole_dist: float = 1e-4, *,
+                            device) -> ParallelCascadeParams:
     """Factor ``[S, 5]`` host coefficients into the parallel form, in
-    float64, on ``device``.
+    float64, and round it once to ``dtype`` (float32, bfloat16, float16,
+    or float64, in which the port computes) on ``device``.
 
     The residues come from the factored form (each biquad's own quadratic):
     expanding the 2S-order polynomials would wreck the poles.  Raises
@@ -327,9 +523,10 @@ def parallel_cascade_params(coeffs, *, device,
         r[j] = num[j] / np.prod(np.delete(1.0 - poles * u[j], j))
     if not np.all(np.isfinite(r)) or np.abs(r).max() > 1e6:
         raise ValueError("huge residues: parallel form ill-conditioned")
+    dtype = storage_dtype(dtype, "parallel_cascade_params", float64=True)
 
     def dev(v):
-        return torch.from_numpy(np.array(v, np.float32)).to(device)
+        return host_tensor(v, dtype, device)
 
     return ParallelCascadeParams(c=dev(c_direct), pr=dev(poles.real),
                                  pi=dev(poles.imag), rr=dev(r.real),
@@ -348,6 +545,8 @@ def parallel_cascade_apply(x: torch.Tensor, params: ParallelCascadeParams,
     if state is None:
         z = x.new_zeros((K,) + batch)
         state = ParallelCascadeState(z, z)
+    if x.dtype in NARROW or params.pr.dtype in NARROW:
+        return _parallel_cascade_apply_narrow(x, params, state)
     poles = torch.complex(params.pr, params.pi)
     s0 = torch.complex(state.sr, state.si)
     xb = x.expand((K,) + batch + (T,))
@@ -362,11 +561,43 @@ def parallel_cascade_apply(x: torch.Tensor, params: ParallelCascadeParams,
     else:
         pw = _pole_powers(poles, T + 1)
         pw = pw.reshape((K,) + (1,) * len(batch) + (T + 1,))
-        s = _cpx_affine_scan(pw, xb.to(torch.complex64), s0)
+        s = _cpx_affine_scan(pw, xb.to(poles.dtype), s0)
     shape_k = (K,) + (1,) * (len(batch) + 1)
     rr, ri = params.rr.reshape(shape_k), params.ri.reshape(shape_k)
     y = params.c * x + (rr * s.real - ri * s.imag).sum(0)
     last = torch.stack([s.real[..., -1], s.imag[..., -1]])
+    return y, ParallelCascadeState(*last.unbind(0))
+
+
+def _parallel_cascade_apply_narrow(x, params: ParallelCascadeParams,
+                                   state: ParallelCascadeState):
+    """:func:`parallel_cascade_apply` where the parameters or the signal
+    are bfloat16 or float16, as :func:`_modal_apply_narrow` runs the modal
+    engine: the JAX package's steps in the types it promotes to."""
+    T = x.shape[-1]
+    K = params.pr.shape[0]
+    batch = tuple(x.shape[:-1])
+    cd = promoted(x.dtype, params.pr.dtype, state.sr.dtype, state.si.dtype)
+    (xb,) = _in(cd, x.expand((K,) + batch + (T,)))
+    shape_k = (K,) + (1,) * len(batch) + (1,)
+    if T % _TOEP_CHUNK == 0 and T >= 2 * _TOEP_CHUNK:
+        Bf = math.prod(batch)
+        sr, si = _narrow_scan_const(params.pr, params.pi, xb.reshape(K, Bf, T),
+                                    None, state.sr.reshape(K, Bf),
+                                    state.si.reshape(K, Bf), cd)
+        sr, si = sr.reshape(xb.shape), si.reshape(xb.shape)
+    else:
+        ar, ai = (t.reshape(shape_k).expand(shape_k[:-1] + (T,))
+                  for t in (params.pr, params.pi))
+        sr, si = _narrow_cpx_scan(ar, ai, xb, torch.zeros_like(xb), state.sr,
+                                  state.si, cd)
+    rr, ri, c = _in(cd, params.rr.reshape(shape_k), params.ri.reshape(shape_k),
+                    params.c)
+    mix = rr * sr - ri * si
+    # the reference's sum takes a narrow operand in float32, rounds once
+    mix = mix.float().sum(0).to(cd) if cd in NARROW else mix.sum(0)
+    y = c * x.to(cd) + mix
+    last = torch.stack([sr[..., -1], si[..., -1]])
     return y, ParallelCascadeState(*last.unbind(0))
 
 
@@ -635,7 +866,8 @@ def cascade_apply(x: torch.Tensor, coeffs, states=None, engine: str = "auto",
         if systolic:
             raise ValueError("systolic mode is a serial-form semantic")
         params = (coeffs if isinstance(coeffs, ParallelCascadeParams)
-                  else parallel_cascade_params(coeffs, device=x.device))
+                  else parallel_cascade_params(coeffs, x.dtype,
+                                               device=x.device))
         return parallel_cascade_apply(x, params, states)
     modal = isinstance(coeffs, ModalParams)
     S = coeffs.b0.shape[0] if modal else np.shape(coeffs)[0]

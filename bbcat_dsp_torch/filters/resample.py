@@ -12,6 +12,11 @@ phases, 14 taps; effective group delay 8 input samples).
 The table is an interpolation filter (anti-imaging, not anti-aliasing):
 downsampling by more than about 1.5x needs a lowpass first.
 
+``Resampler(dtype=...)`` stores its history in bfloat16 or float16, as
+the JAX package's does: a history of zeros, read widened against a
+float32 input, so the first block's output is float32 and the history
+it keeps is float32 from then on (the reference's own dtype flow).
+
 Positions are computed on the host and reach the device as float32: a
 device's own float32 division may differ in the last bit, and that can
 move a position to another phase.
@@ -22,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.precision import promoted, storage_dtype
 from .fractional import ADDITIONAL_DELAY, fractional_read
 
 __all__ = ["resample", "Resampler"]
@@ -50,12 +56,14 @@ class Resampler:
     sample whose 14-tap support is complete: output block sizes vary by
     one sample as the phase accumulates."""
 
-    def __init__(self, nchannels: int, ratio: float, block: int, *, device):
+    def __init__(self, nchannels: int, ratio: float, block: int,
+                 dtype=torch.float32, *, device):
         self.ratio = float(ratio)
         self.nchannels = nchannels
         self.block = int(block)
         # one block and the filter's headroom of history
         self.hist = torch.zeros((nchannels, ADDITIONAL_DELAY + self.block),
+                                dtype=storage_dtype(dtype, "history"),
                                 device=device)
         self._in_total = 0    # input samples consumed
         self._out_count = 0   # output samples emitted: positions derive
@@ -65,7 +73,8 @@ class Resampler:
         """Feed ``[C, B]``; returns ``[C, n_k]`` resampled output."""
         B = x.shape[-1]
         keep = self.hist.shape[-1]
-        buf = torch.cat([self.hist, x], dim=-1)
+        dt = promoted(self.hist.dtype, x.dtype)
+        buf = torch.cat([self.hist.to(dt), x.to(dt)], dim=-1)
         base = self._in_total - keep          # absolute position of buf[0]
         # every output k with k / ratio <= in_total + B
         k_end = int(np.floor((self._in_total + B) * self.ratio + 1e-9))

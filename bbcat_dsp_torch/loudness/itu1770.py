@@ -16,6 +16,16 @@ re-derived here (the port does not import that package):
   unbounded streams.  Everything but the readouts stays on the device;
   the readouts pull the histograms to the host, the meter's only sync.
 
+``LoudnessMeter(dtype=...)`` stores the K-weighting parameters, the
+channel weights, the filters' initial state and the squared tail in
+bfloat16 or float16, as the JAX package's does: the filters run its
+narrow modal arithmetic (:mod:`~bbcat_dsp_torch.filters.iir`) against a
+float32 signal, their state is float32 after a block, the squares and
+gating powers are float32, and the tail is rounded back to the narrow
+type at the end of every block.  :func:`k_weight` and
+:func:`block_powers` of a narrow signal run in its type, the gating
+powers in float32.
+
 On a CUDA card the histograms add with atomics, so ``hist_sum`` and
 ``st_sum`` sum in an order that changes from run to run (the counts are
 exact), and the cumulative sums run as parallel scans that round
@@ -31,6 +41,7 @@ import numpy as np
 import torch
 
 from ..filters.iir import ModalState, modal_apply, modal_init, modal_params
+from ..utils.precision import NARROW, host_tensor, storage_dtype
 
 __all__ = [
     "CHANNEL_WEIGHTS_5_1",
@@ -96,19 +107,33 @@ def default_channel_weights(nchannels: int) -> np.ndarray:
     return np.ones(nchannels, np.float64)
 
 
-def k_weight_params(fs: float, *, device):
-    """The two K-weighting biquads as ModalParams (shelf, RLB)."""
+def k_weight_params(fs: float, dtype=torch.float32, *, device):
+    """The two K-weighting biquads as ModalParams (shelf, RLB) in
+    ``dtype``."""
     shelf, rlb = k_weighting_coeffs(fs)
-    return (modal_params(shelf, device=device),
-            modal_params(rlb, device=device))
+    return (modal_params(shelf, device=device, dtype=dtype),
+            modal_params(rlb, device=device, dtype=dtype))
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """A narrow tensor widened to float32; any other as it is."""
+    return t.float() if t.dtype in NARROW else t
+
+
+def _signal_dtype(x: torch.Tensor) -> torch.dtype:
+    """The type the reference designs the filters in for a signal: its
+    own where narrow, else float32."""
+    return x.dtype if x.dtype in NARROW else torch.float32
 
 
 def k_weight(x: torch.Tensor, fs: float, states=None):
-    """K-weight ``x [..., T]``: ``(y, (shelf_state, rlb_state))``."""
-    p_shelf, p_rlb = k_weight_params(fs, device=x.device)
+    """K-weight ``x [..., T]``: ``(y, (shelf_state, rlb_state))``; a
+    bfloat16 or float16 signal is filtered in its own type."""
+    dt = _signal_dtype(x)
+    p_shelf, p_rlb = k_weight_params(fs, dt, device=x.device)
     if states is None:
-        states = (modal_init(p_shelf, x.shape[:-1]),
-                  modal_init(p_rlb, x.shape[:-1]))
+        states = (modal_init(p_shelf, x.shape[:-1], dt),
+                  modal_init(p_rlb, x.shape[:-1], dt))
     y, s1 = modal_apply(x, p_shelf, states[0])
     y, s2 = modal_apply(y, p_rlb, states[1])
     return y, (s1, s2)
@@ -126,8 +151,9 @@ def _window_means(sq: torch.Tensor, blk: int, step: int) -> torch.Tensor:
 
 def _block_mean_squares(y: torch.Tensor, blk: int, step: int) -> torch.Tensor:
     """Per-channel mean square over the sliding gating blocks: ``y [C, T]``
-    -> ``[C, nblocks]``."""
-    return _window_means(torch.square(y), blk, step)
+    -> ``[C, nblocks]``, in float32 (a narrow ``y`` squared in its type,
+    then widened)."""
+    return _window_means(_wide(torch.square(y)), blk, step)
 
 
 def _gates(fs: float) -> tuple[int, int]:
@@ -140,11 +166,16 @@ def block_powers(x: torch.Tensor, fs: float, weights=None, states=None):
     [nblocks], states)``; the block loudness is ``-0.691 + 10 log10 z_j``."""
     if weights is None:
         weights = default_channel_weights(x.shape[0])
-    w = torch.as_tensor(np.asarray(weights, np.float32), device=x.device)
+    w = _weights(weights, _signal_dtype(x), x.device)
     y, states = k_weight(x, fs, states)
     blk, step = _gates(fs)
     ms = _block_mean_squares(y, blk, step)        # [C, nblocks]
-    return torch.sum(w[:, None] * ms, dim=0), states
+    return torch.sum(_wide(w)[:, None] * ms, dim=0), states
+
+
+def _weights(weights, dtype: torch.dtype, device) -> torch.Tensor:
+    """Channel weights on ``device`` in ``dtype``."""
+    return host_tensor(weights, dtype, device)
 
 
 def _lkfs(z: torch.Tensor) -> torch.Tensor:
@@ -199,17 +230,17 @@ class LoudnessMeter:
 
     HIST_MIN, HIST_MAX, HIST_STEP = -90.0, 10.0, 0.1
 
-    def __init__(self, nchannels: int, fs: float = 48000.0, weights=None, *,
-                 device):
+    def __init__(self, nchannels: int, fs: float = 48000.0, weights=None,
+                 dtype=torch.float32, *, device):
         self.device = torch.device(device)
         self.fs = fs
         self.nchannels = nchannels
+        self.dtype = storage_dtype(dtype, "meter")
         self.blk, self.step = _gates(fs)
-        self.weights = torch.as_tensor(np.asarray(
-            weights if weights is not None
-            else default_channel_weights(nchannels), np.float32),
-            device=self.device)
-        self._params = k_weight_params(fs, device=self.device)
+        self.weights = _weights(weights if weights is not None
+                                else default_channel_weights(nchannels),
+                                self.dtype, self.device)
+        self._params = k_weight_params(fs, self.dtype, device=self.device)
         self.nbins = int(round((self.HIST_MAX - self.HIST_MIN)
                                / self.HIST_STEP))
         self.reset()
@@ -219,9 +250,10 @@ class LoudnessMeter:
         p_shelf, p_rlb = self._params
         y, s1 = modal_apply(x, p_shelf, state.shelf)
         y, s2 = modal_apply(y, p_rlb, state.rlb)
-        ext = torch.cat([state.sq_tail, torch.square(y)], -1)
+        # the squares in float32, a narrow tail widened
+        ext = torch.cat([_wide(state.sq_tail), _wide(torch.square(y))], -1)
         ncomplete = (ext.shape[-1] - blk) // step + 1
-        z = torch.sum(self.weights[:, None]
+        z = torch.sum(_wide(self.weights)[:, None]
                       * _window_means(ext, blk, step), dim=0)        # [n]
         # the first blk/step - 1 gating blocks of the stream span the
         # silence before it: they stay out of the histograms
@@ -246,7 +278,9 @@ class LoudnessMeter:
         consumed = ncomplete * step
         return MeterState(
             shelf=s1, rlb=s2,
-            sq_tail=ext[:, consumed:consumed + blk - step].contiguous(),
+            # rounded back to the tail's type
+            sq_tail=ext[:, consumed:consumed + blk - step].to(
+                state.sq_tail.dtype).contiguous(),
             hist_count=cnt, hist_sum=sm,
             momentary_z=z[-1].clone(),
             short_ring=torch.cat([state.short_ring, z])[-30:].contiguous(),
@@ -334,9 +368,10 @@ class LoudnessMeter:
         p_shelf, p_rlb = self._params
         C, dev = self.nchannels, self.device
         self.state = MeterState(
-            shelf=modal_init(p_shelf, (C,)),
-            rlb=modal_init(p_rlb, (C,)),
-            sq_tail=torch.zeros((C, self.blk - self.step), device=dev),
+            shelf=modal_init(p_shelf, (C,), self.dtype),
+            rlb=modal_init(p_rlb, (C,), self.dtype),
+            sq_tail=torch.zeros((C, self.blk - self.step), dtype=self.dtype,
+                                device=dev),
             hist_count=torch.zeros(self.nbins, dtype=torch.int32, device=dev),
             hist_sum=torch.zeros(self.nbins, device=dev),
             momentary_z=torch.zeros((), device=dev),

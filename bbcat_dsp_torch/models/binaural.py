@@ -5,6 +5,12 @@ exchange, and BS.1770 metering of the output.
 The counterpart of the JAX package's ``models/binaural.py``.  Its output
 reaches the meter through a buffer on the device: the host never waits on
 a block, so the per-block latency is the path's own.
+
+``dtype`` (float32, bfloat16 or float16) is the JAX package's: the EQ's
+parameters and initial state and the matrix convolver's spectral queue
+are stored in it.  The EQ runs the narrow parameters against the float32
+block (its state is float32 after one), the queue stays narrow, and the
+output is float32.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from ..convolve.matrix import (
 )
 from ..filters.iir import modal_apply, modal_init, modal_params
 from ..loudness import LoudnessMeter
+from ..utils.precision import storage_dtype
 
 __all__ = ["BinauralState", "binaural_init", "binaural_step",
            "BinauralRenderer"]
@@ -33,10 +40,11 @@ class BinauralState(NamedTuple):
 
 
 def binaural_init(eq_params: tuple, nchannels: int, block: int, nparts: int,
-                  *, device) -> BinauralState:
+                  dtype=torch.float32, *, device) -> BinauralState:
+    """Silence: the EQ's states and the matrix queue in ``dtype``."""
     return BinauralState(
-        eq=tuple(modal_init(p, (nchannels,)) for p in eq_params),
-        conv=convolver_init(nchannels, block, nparts, device=device),
+        eq=tuple(modal_init(p, (nchannels,), dtype) for p in eq_params),
+        conv=convolver_init(nchannels, block, nparts, dtype, device=device),
     )
 
 
@@ -64,18 +72,21 @@ class BinauralRenderer:
     channel in turn."""
 
     def __init__(self, hrtf, block: int, eq_stages=None, fs: float = 48000.0,
-                 nparts: int | None = None, *, device):
+                 nparts: int | None = None, dtype=torch.float32, *, device):
         self.device = torch.device(device)
+        self.dtype = storage_dtype(dtype, "renderer")
         self.block = int(block)
         self.fs = fs
         self.H = partition_ir_matrix(hrtf, self.block, nparts,
                                      device=self.device)
         _, self.nparts, self.c_in, self.c_out = self.H.shape
-        self.eq_params = tuple(modal_params(c, device=self.device)
+        self.eq_params = tuple(modal_params(c, device=self.device,
+                                            dtype=self.dtype)
                                for c in ([] if eq_stages is None
                                          else eq_stages))
         self.state = binaural_init(self.eq_params, self.c_in, self.block,
-                                   self.nparts, device=self.device)
+                                   self.nparts, self.dtype,
+                                   device=self.device)
         self.meter = LoudnessMeter(self.c_out, fs, device=self.device)
         self._meter_buf = torch.zeros((self.c_out, 0), device=self.device)
         self._pending_H = None

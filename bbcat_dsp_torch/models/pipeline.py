@@ -6,6 +6,14 @@
   configuration).
 * :class:`MixdownPipeline`: format conversion, gain-matrix mixdown and
   BS.1770 loudness of the mix.
+
+Both take the JAX package's ``dtype`` (float32, bfloat16 or float16),
+with its dtype flow.  ``EQDelayPipeline`` stores the cascade's parameters,
+its initial state and the delay's ring in it: the cascade runs the narrow
+parameters against the float32 block (its state is float32 after one),
+the ring rounds what is written to it, and the output is the ring's read
+in the narrow type.  ``MixdownPipeline`` stores the gains in it and mixes
+them widened: its output is float32.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ from ..filters.iir import (
 from ..formats.device import float_to_int32, int32_to_float
 from ..formats.sample_format import SampleFormat, is_sample_integer
 from ..loudness import LoudnessMeter
-from ..utils.precision import full_f32
+from ..utils.precision import full_f32, host_tensor, storage_dtype
 
 __all__ = ["EQDelayPipeline", "EQDelayState", "MixdownPipeline"]
 
@@ -58,29 +66,34 @@ class EQDelayPipeline:
     resolution does not degrade as the stream grows long."""
 
     def __init__(self, eq_coeffs, nchannels: int, block: int,
-                 max_delay: float, fs: float = 48000.0, *, device):
+                 max_delay: float, fs: float = 48000.0, dtype=torch.float32,
+                 *, device):
         eq_coeffs = np.atleast_2d(np.asarray(eq_coeffs, np.float64))
         self.device = torch.device(device)
         self.block = int(block)
         self.fs = fs
+        self.dtype = dtype = storage_dtype(dtype, "pipeline")
         try:
-            self.psos = parallel_cascade_params(eq_coeffs, device=self.device)
+            self.psos = parallel_cascade_params(eq_coeffs, dtype,
+                                                device=self.device)
             self.params = None
         except ValueError:
             self.psos = None
-            self.params = tuple(modal_params(c, device=self.device)
+            self.params = tuple(modal_params(c, device=self.device,
+                                             dtype=dtype)
                                 for c in eq_coeffs)
         L = int(np.ceil(max_delay)) + ADDITIONAL_DELAY + self.block
         # a power of two, as the JAX package rounds it
         self.length = 1 << int(np.ceil(np.log2(max(L, 2))))
         if self.params is None:
-            z = torch.zeros((self.psos.pr.shape[0], nchannels),
+            z = torch.zeros((self.psos.pr.shape[0], nchannels), dtype=dtype,
                             device=self.device)
             eq0 = ParallelCascadeState(z, z)
         else:
-            eq0 = tuple(modal_init(p, (nchannels,)) for p in self.params)
+            eq0 = tuple(modal_init(p, (nchannels,), dtype)
+                        for p in self.params)
         self.state = EQDelayState(
-            eq=eq0, ring=ring_init((nchannels,), self.length,
+            eq=eq0, ring=ring_init((nchannels,), self.length, dtype,
                                    device=self.device))
 
     def _step(self, state: EQDelayState, x: torch.Tensor,
@@ -128,10 +141,11 @@ class MixdownPipeline:
 
     def __init__(self, gains, fs: float = 48000.0,
                  in_format: SampleFormat = SampleFormat.FLOAT,
-                 out_format: SampleFormat = SampleFormat.FLOAT, *, device):
+                 out_format: SampleFormat = SampleFormat.FLOAT,
+                 dtype=torch.float32, *, device):
         self.device = torch.device(device)
-        self.gains = torch.as_tensor(np.asarray(gains, np.float32),
-                                     device=self.device)
+        self.gains = host_tensor(gains, storage_dtype(dtype, "gains"),
+                                 self.device)
         self.in_format = in_format
         self.out_format = out_format
         c_out = self.gains.shape[0]
@@ -144,7 +158,8 @@ class MixdownPipeline:
         x = torch.as_tensor(x, device=self.device)
         x = int32_to_float(x) if is_sample_integer(self.in_format) else x.float()
         with full_f32():
-            y = torch.matmul(self.gains, x)
+            # narrow gains widened: the reference mixes in float32
+            y = torch.matmul(self.gains.float(), x)
         if is_sample_integer(self.out_format):
             y = float_to_int32(y)
             yf = int32_to_float(y)

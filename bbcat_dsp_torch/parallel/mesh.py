@@ -81,17 +81,17 @@ def _device(device) -> torch.device:
     return dev
 
 
-def make_mesh(n=None, axis_name="ch", *, device) -> Mesh:
+def make_mesh(n_devices=None, axis_name="ch", *, device) -> Mesh:
     """A mesh over the whole world of the running process group.
 
-    ``n`` and ``axis_name`` are an int and a name for one axis (``n``
-    defaults to the world size), or tuples of both for two axes, e.g.
-    ``make_mesh((2, 2), ("ch", "t"), device=dev)``; the sizes' product is
-    the world size.  Ranks are laid out row-major, the last axis fastest."""
+    ``n_devices`` and ``axis_name`` are an int and a name for one axis
+    (``n_devices`` defaults to the world size), or tuples of both for two
+    axes, e.g. ``make_mesh((2, 2), ("ch", "t"), device=dev)``; the sizes'
+    product is the world size.  Ranks are laid out row-major, the last axis fastest."""
     world = dist.get_world_size()
     names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
-    shape = ((world,) if n is None else (n,) if isinstance(n, int)
-             else tuple(n))
+    n = n_devices
+    shape = (world,) if n is None else (n,) if isinstance(n, int) else tuple(n)
     if len(shape) != len(names) or len(names) not in (1, 2):
         raise ValueError(f"mesh of shape {shape} with axes {names}: one or "
                          "two axes, one size each")
@@ -112,15 +112,14 @@ def _slice(t: torch.Tensor, mesh, dim: int, axis: str) -> torch.Tensor:
     return t.narrow(dim, i * k, k)
 
 
-def shard_channels(t, mesh, channel_axis: int = 0,
+def shard_channels(arr, mesh, channel_axis: int = 0,
                    axis_name: str = "ch") -> torch.Tensor:
-    """This rank's contiguous slice of ``t`` along ``channel_axis``,
-    contiguous and on the mesh's device.  Any axis of ``t`` can be cut
+    """This rank's contiguous slice of ``arr`` along ``channel_axis``,
+    contiguous and on the mesh's device.  Any axis of ``arr`` can be cut
     over any axis of the mesh (time spans: ``channel_axis=1,
     axis_name="t"``)."""
-    t = torch.as_tensor(t)
-    return _slice(t, mesh, channel_axis, axis_name).contiguous().to(
-        mesh.device)
+    return _slice(torch.as_tensor(arr), mesh, channel_axis,
+                  axis_name).contiguous().to(mesh.device)
 
 
 def shard_state(state, mesh, axis_name: str = "ch"):

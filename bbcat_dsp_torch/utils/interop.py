@@ -16,10 +16,14 @@ small-block path's partly filled super-block (``_sb_buf``, ``_sb_fill``) is
 not part of the state.  Only the standard spectral layout crosses here: a
 permuted-layout spectrum (``r * (n/r/2 + 1)`` bins instead of ``n/2 + 1``)
 is refused; a state file of that layout is converted when it is read
-(:mod:`~bbcat_dsp_torch.utils.checkpoint`).  A block or matrix
-convolver's queue and ``prev`` keep their dtype: float32, float16, or
+(:mod:`~bbcat_dsp_torch.utils.checkpoint`).  A leaf that an engine built
+with a narrow ``dtype`` stores narrow keeps its dtype, float16 or
 bfloat16 (an ``ml_dtypes`` array on the JAX side, carried over by its
-bits).
+bits): a block or matrix convolver's queue and ``prev``, a ring's data,
+a modal engine's parameters and state, the meter's tail and filter
+states, the EQ's.  The two-level engine's tail queue keeps its dtype;
+its other leaves come over as float32, as the port stores them (a fresh
+narrow JAX engine holds them narrow, all zeros, so this is exact).
 """
 
 from __future__ import annotations
@@ -68,6 +72,13 @@ def narrow_tensor(a) -> torch.Tensor | None:
     return None
 
 
+def _leaf(a, device) -> torch.Tensor:
+    """A numpy leaf as a tensor on ``device``: a narrow one in its own
+    dtype, bit for bit, any other as float32."""
+    t = narrow_tensor(a)
+    return _tensor(a, device) if t is None else t.to(device)
+
+
 def _planes(a, name: str, nbins: int, n: int, device,
             keep_narrow: bool = False) -> torch.Tensor:
     shape = np.shape(a)
@@ -76,8 +87,7 @@ def _planes(a, name: str, nbins: int, n: int, device,
             f"{name}: shape {shape}, expected [2, ..., {nbins}] -- the "
             f"standard layout at FFT size {n} (a permuted-layout state does "
             "not fit the port)")
-    t = narrow_tensor(a) if keep_narrow else None
-    return _tensor(a, device) if t is None else t.to(device)
+    return _leaf(a, device) if keep_narrow else _tensor(a, device)
 
 
 def from_jax_arrays(H_head, H_tail, state, *, block: int, device):
@@ -85,7 +95,8 @@ def from_jax_arrays(H_head, H_tail, state, *, block: int, device):
 
     ``state`` has the JAX ``NonUniformState``'s fields (``xcarry``,
     ``prev``, ``tail`` with ``queue``/``prev``/``step``, ``pending``) as
-    numpy arrays; ``block`` is the head's block size."""
+    numpy arrays; ``block`` is the head's block size.  A narrow tail queue
+    stays narrow, every other leaf comes over as float32."""
     B2 = np.shape(state.pending)[-1]
     nh, nt = 2 * block, 2 * B2
     Fh, Ft = spectral_nbins(nh), spectral_nbins(nt)
@@ -93,7 +104,8 @@ def from_jax_arrays(H_head, H_tail, state, *, block: int, device):
         xcarry=_planes(state.xcarry, "xcarry", Fh, nh, device),
         prev=_planes(state.prev, "prev", Fh, nh, device),
         tail=ConvolverState(
-            queue=_planes(state.tail.queue, "tail.queue", Ft, nt, device),
+            queue=_planes(state.tail.queue, "tail.queue", Ft, nt, device,
+                          keep_narrow=True),
             prev=_planes(state.tail.prev, "tail.prev", Ft, nt, device),
             step=int(np.asarray(state.tail.step)),
         ),
@@ -129,9 +141,10 @@ def matrix_state_from_jax(H, state, *, block: int, device):
 
 def modal_from_jax(leaves, *, device):
     """A ``ModalParams`` (fields ``b0`` .. ``p2i``) or ``ModalState``
-    (``x1`` .. ``wi``) of numpy arrays as the port's tuple on ``device``."""
+    (``x1`` .. ``wi``) of numpy arrays as the port's tuple on ``device``,
+    narrow leaves in their dtype."""
     cls = ModalParams if hasattr(leaves, "b0") else ModalState
-    return cls(*(_tensor(getattr(leaves, f), device) for f in cls._fields))
+    return cls(*(_leaf(getattr(leaves, f), device) for f in cls._fields))
 
 
 def meter_state_from_jax(state, *, device) -> MeterState:
@@ -144,7 +157,7 @@ def meter_state_from_jax(state, *, device) -> MeterState:
     return MeterState(
         shelf=modal_from_jax(state.shelf, device=device),
         rlb=modal_from_jax(state.rlb, device=device),
-        sq_tail=_tensor(state.sq_tail, device),
+        sq_tail=_leaf(state.sq_tail, device),
         hist_count=counts(state.hist_count),
         hist_sum=_tensor(state.hist_sum, device),
         momentary_z=_tensor(state.momentary_z, device),
@@ -166,8 +179,9 @@ def binaural_state_from_jax(H, state, *, block: int, device):
 
 def ring_from_jax(ring, *, device) -> Ring:
     """A ``Ring`` (``data [..., L]``, ``writepos``) of numpy leaves as the
-    port's on ``device``, the write position as a host integer."""
-    return Ring(_tensor(ring.data, device), int(np.asarray(ring.writepos)))
+    port's on ``device``, the write position as a host integer; narrow
+    data keeps its dtype."""
+    return Ring(_leaf(ring.data, device), int(np.asarray(ring.writepos)))
 
 
 def eq_delay_state_from_jax(state, *, device) -> EQDelayState:
@@ -176,8 +190,8 @@ def eq_delay_state_from_jax(state, *, device) -> EQDelayState:
     [K, C]``) or one ``ModalState`` a stage, ``ring`` the delay's ring.
     Assign it to the port pipeline's ``state``."""
     if hasattr(state.eq, "sr"):
-        eq = ParallelCascadeState(_tensor(state.eq.sr, device),
-                                  _tensor(state.eq.si, device))
+        eq = ParallelCascadeState(_leaf(state.eq.sr, device),
+                                  _leaf(state.eq.si, device))
     else:
         eq = tuple(modal_from_jax(s, device=device) for s in state.eq)
     return EQDelayState(eq=eq, ring=ring_from_jax(state.ring, device=device))

@@ -191,6 +191,23 @@ Phases, each of which exits nonzero on failure:
    card against the CPU (>= 110 dB) with nonzero DC and Nyquist imaginary
    parts, and the same spectra through ``torch.fft.irfft``, which must
    read lower at some shape for the zeroing to show.
+17. the dtype surface at full width, each part at bfloat16 and float16
+   beside float32, each SNR against float64 held to ``NARROW_BARS`` (the
+   JAX package's own narrow output on the same inputs less 1 dB,
+   ``tests/narrow_bars.py``): (a) the headline two-level engine with a
+   narrow tail queue through ``process_block``, 16 super-blocks with an
+   exchange of every IR and of channel 31's, channels 0, 31 and 63 against
+   the float64 crossfade model with the click check, exactly the float32
+   path's launches (K1, K3, K7, K4) and no plain version, ``process`` and
+   ``process_small_block`` raising, the queue's bytes; (b) config #3
+   narrow (``BinauralRenderer``, 48 blocks, an HRTF exchange; both ears
+   and the meter against float64); (c) config #2 narrow on both delay
+   paths and the modal fallback, the output in the narrow type, then a
+   ``FractionalDelayLine``, ``SoundDelayBuffer`` and ``Resampler`` at 64
+   channels; (d) config #4 narrow (the meter's integrated loudness against
+   a float64 gating, the mixdown); (e) (a)-(c) resumed across state files
+   (>= 110 dB). Each with its ms a block back to back and device-only and
+   its peak memory.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches, error, times and bound.
@@ -320,6 +337,175 @@ def block_powers64(yk, weights, start: int = 0):
     ms = np.stack([sq[:, j * step:j * step + blk].mean(-1) for j in range(n)],
                   -1)
     return np.asarray(weights, np.float64) @ ms
+
+
+def cascade64(x, stages):
+    """The biquads ``stages [S, 5]`` one after the other, float64."""
+    y = np.asarray(x, np.float64)
+    for c in stages:
+        y = lfilter64(y, c)
+    return y
+
+
+def delayed64(y, delays, L: int, B: int):
+    """A float64 reading of the ring positions the EQ and delay pipeline
+    reads, block by block of ``B``: the positions in float32 as the
+    contract computes them (block start modulo ``L`` in integers, minus
+    the delay, plus ``L``, modulo ``L``), phase and base from them, then
+    the 14 taps over the float64 samples ``y [C, T]`` that lie at those
+    places in a ring of ``L`` written up to the block's end.  ``delays
+    [C]`` or ``[C, T]``."""
+    from bbcat_dsp_torch.filters.fractional import (
+        OVERSAMPLING,
+        TAPS,
+        polyphase_table,
+    )
+
+    table64 = polyphase_table().reshape(TAPS, OVERSAMPLING)   # [tap, phase]
+    out = np.zeros_like(y)
+    rows = np.arange(y.shape[0])[:, None, None]
+    for blk in range(y.shape[-1] // B):
+        end = (blk + 1) * B
+        d = delays[:, blk * B:end] if delays.ndim > 1 else delays[:, None]
+        first = np.float32((end - B) % L)
+        # one position a sample, or the block's first alone: the stream
+        # read takes phase and base from it for the whole block
+        ahead = (np.arange(B, dtype=np.float32) if delays.ndim > 1
+                 else np.float32(0.0))
+        pos = np.remainder((first + ahead) - d + np.float32(L), np.float32(L))
+        phase = OVERSAMPLING - 1 - (np.floor(pos * np.float32(
+            OVERSAMPLING)).astype(np.int64) % OVERSAMPLING)
+        base = (np.floor(pos).astype(np.int64) + L - TAPS) % L
+        if delays.ndim == 1:
+            base = base + np.arange(B)
+        place = (base[..., None] + np.arange(TAPS)) % L     # [C, B, 14]
+        # the newest sample at each place: written at time m <= end - 1
+        m = end - 1 - (end - 1 - place) % L
+        taps = np.where(m >= 0, y[rows, np.maximum(m, 0)], 0.0)
+        out[:, end - B:end] = np.sum(taps * table64.T[phase], -1)
+    return out
+
+
+# phase 17: the dtype surface at full width, on inputs of their own seed
+NSUP17, SW_ALL, SW_ONE = 16, 6, 11        # (a): super-blocks, exchanges
+CI17, NB17, SW17 = 64, 48, 16             # (b): config #3
+C17, B17, NBLK17 = 8, 4096, 16            # (c): config #2
+C4_17 = 128                               # (d): config #4, 1 s
+# the bars: the JAX package's own narrow output against the same float64
+# references on the same inputs, less 1 dB (the lower of its compiled and
+# its operation-by-operation run), measured on the CPU by
+# tests/narrow_bars.py; for the meter, JAX's integrated loudness error
+# plus 0.01 LU
+NARROW_BARS = {
+    "bfloat16": {"a": 75.73, "b": 46.33, "c stream": 41.12, "c gather": 42.73,
+                 "c modal": 34.77, "c line": 48.24, "d mixdown": 53.68},
+    "float16": {"a": 93.81, "b": 61.99, "c stream": 58.73, "c gather": 60.38,
+                "c modal": 51.02, "c line": 66.49, "d mixdown": 72.59}}
+NARROW_LU = {"bfloat16": 0.0301, "float16": 0.0118}
+
+
+def phase17_inputs(peq) -> dict:
+    """Phase 17's inputs, all from one seed; ``peq(f, gain)`` designs a
+    PEQ row ``[b0, b1, b2, a1, a2]`` at 48 kHz.  ``tests/narrow_bars.py``
+    runs the JAX package on the same inputs for ``NARROW_BARS``."""
+    rng = np.random.default_rng(SEED + 17)
+    a = {"h1": exp_irs(rng, C, N), "h2": exp_irs(rng, C, N),
+         "h3": exp_irs(rng, 1, N)[0],
+         "x": rng.standard_normal((C, NSUP17 * SB)).astype(np.float32)}
+
+    def hrtfs():
+        h = rng.standard_normal((CI17, 2, 1024)) * np.exp(
+            -np.arange(1024) / 200.0)
+        return h / np.sqrt(np.sum(h ** 2, axis=-1, keepdims=True))
+
+    b = {"h1": hrtfs(), "h2": hrtfs(), "eq": peq(1000.0, 4.0),
+         "x": (rng.standard_normal((CI17, NB17 * BLOCK)) * 0.05).astype(
+             np.float32)}
+    eq2 = np.stack([peq(100.0 * (i + 1), 3.0 * (-1.0) ** i) for i in range(8)])
+    T2 = NBLK17 * B17
+
+    def grid(d):
+        """Delays on the 1/128-sample grid, which float32 holds exactly at
+        the reference's positions up to 2^17: its float32-position fault
+        (ROADMAP queue 3, PR 6) stays out of the bars."""
+        return (np.round(d * 128.0) / 128.0).astype(np.float32)
+
+    c = {"eq": eq2, "twice": np.concatenate([eq2[:7], eq2[:1]]),
+         "x": rng.standard_normal((C17, T2)).astype(np.float32),
+         "steady": grid(np.linspace(20.0, 200.0, C17)),
+         "glide": grid(110.0 + 90.0 * np.sin(2 * np.pi * 0.5 * np.arange(T2)
+                                             / FS + np.arange(C17)[:, None])),
+         "xs": rng.standard_normal((C, 8 * 1024)).astype(np.float32),
+         "ds": rng.uniform(1.0, 900.0, (C, 512)).astype(np.float32)}
+    levels = 10.0 ** (-rng.uniform(0.0, 20.0, C4_17) / 20.0)
+    d = {"x": (rng.standard_normal((C4_17, int(FS))) * 0.1
+               * levels[:, None]).astype(np.float32),
+         "gains": rng.standard_normal((2, C4_17)) / np.sqrt(C4_17)}
+    return {"a": a, "b": b, "c": c, "d": d}
+
+
+def two_level_model(x, h1, h2, h3, ch: int, k_one: int):
+    """Phase 17 (a)'s float64 model of channel ``ch`` through
+    ``process_block``: every IR exchanged at super-block ``SW_ALL`` (the
+    head fades over its first small block, the tail over its super-step,
+    whose output comes two super-blocks later), channel ``k_one``'s IR
+    exchanged for ``h3`` at ``SW_ONE``."""
+    n1, taps = 2 * RATIO * BLOCK, np.arange(N)
+    hc = h3 if ch == k_one else h2[ch]
+    head = [conv_rows64(x[ch], np.where(taps < n1, h, 0.0))
+            for h in (h1[ch], h2[ch], hc)]
+    tail = [conv_rows64(x[ch], np.where(taps < n1, 0.0, h))
+            for h in (h1[ch], h2[ch], hc)]
+    return (fade(fade(head[0], head[1], SW_ALL * SB, BLOCK), head[2],
+                 SW_ONE * SB, BLOCK)
+            + fade(fade(tail[0], tail[1], (SW_ALL + 2) * SB, SB), tail[2],
+                   (SW_ONE + 2) * SB, SB))
+
+
+def binaural_model(x, eq, h1, h2):
+    """Phase 17 (b)'s float64 model ``[2, T]``: the PEQ on every input,
+    each input's convolution with its HRTFs summed, the exchange at block
+    ``SW17`` faded over one block."""
+    xe = lfilter64(x, eq)[:, None]
+    return np.stack([fade(a, b, SW17 * BLOCK, BLOCK) for a, b in zip(
+        conv_rows64(xe, h1).sum(0), conv_rows64(xe, h2).sum(0))])
+
+
+def kweight64(x):
+    """BS.1770 K-weighting in float64 (the port's design of the filters)."""
+    from bbcat_dsp_torch.loudness import k_weighting_coeffs
+
+    shelf, rlb = k_weighting_coeffs(FS)
+    return lfilter64(lfilter64(x, shelf), rlb)
+
+
+def fractional_reference(xs, ds, L: int, blk: int):
+    """Phase 17 (c)'s delay line in float64: a ring of ``L`` written ``blk``
+    samples of ``xs [C, T]`` at a time and read at ``ds [C, n]`` samples
+    behind the head after each write, the positions in float32 as the line
+    computes them: ``[C, n * T / blk]``."""
+    import torch
+
+    from bbcat_dsp_torch.filters.fractional import fractional_read
+
+    out, ring = [], np.zeros((xs.shape[0], L))
+    for k in range(xs.shape[1] // blk):
+        w = (k + 1) * blk
+        ring[:, (w - blk) % L:(w - blk) % L + blk] = xs[:, w - blk:w]
+        pos = np.remainder(np.float32(w % L) - ds + np.float32(L),
+                           np.float32(L))
+        out.append(fractional_read(torch.from_numpy(ring),
+                                   torch.from_numpy(pos)).numpy())
+    return np.concatenate(out, -1)
+
+
+def meter_reference(x) -> float:
+    """The integrated loudness a meter fed ``x [C, T]`` (T whole 100 ms)
+    reads, in float64: every gating block over the silence before the
+    stream's start but the first three, unit weights."""
+    z = block_powers64(kweight64(x), np.ones(x.shape[0]),
+                       start=-int(0.3 * FS))
+    return gated_lkfs(z[3:])
 
 
 def sine(db_fs: float, seconds: float, nch: int = 2) -> np.ndarray:
@@ -1115,15 +1301,10 @@ def main() -> None:
     # ---- 8. binaural renderer and matrix convolver (config #3) -------------------
     from bbcat_dsp_torch import BinauralRenderer, MatrixConvolver
     from bbcat_dsp_torch.filters import FilterType, biquad_coeffs
-    from bbcat_dsp_torch.loudness import k_weighting_coeffs
 
     MATRIX_KERNELS = {"rfft_half", "irfft_tail"}
     CI, N_HRTF, N_BRIR = 64, 1024, 32768   # scripts/bench_all.py config #3
     eq = biquad_coeffs(FilterType.PEQ, 1000.0, FS, gain=4.0)
-    shelf, rlb = k_weighting_coeffs(FS)
-
-    def kweight64(x):
-        return lfilter64(lfilter64(x, shelf), rlb)
 
     def hrtfs(n: int, decay: float):
         """Decaying noise IRs ``[CI, 2, n]`` of unit energy per input and
@@ -1553,12 +1734,7 @@ def main() -> None:
     # ---- 10. EQ cascade and fractional delay (config #2) ------------------------
     from bbcat_dsp_torch import EQDelayPipeline
     from bbcat_dsp_torch.filters import resample
-    from bbcat_dsp_torch.filters.fractional import (
-        ADDITIONAL_DELAY,
-        OVERSAMPLING,
-        TAPS,
-        polyphase_table,
-    )
+    from bbcat_dsp_torch.filters.fractional import ADDITIONAL_DELAY
 
     C2, B2, NBLK2, MAX_DELAY = 8, 4096, 16, 256.0   # scripts/bench_all.py #2
     eq2 = np.stack([biquad_coeffs(FilterType.PEQ, 100.0 * (i + 1), FS,
@@ -1571,46 +1747,6 @@ def main() -> None:
     # channel at its own phase
     glide = (110.0 + 90.0 * np.sin(2 * np.pi * 0.5 * np.arange(T2) / FS
                                    + np.arange(C2)[:, None])).astype(np.float32)
-    table64 = polyphase_table().reshape(TAPS, OVERSAMPLING)   # [tap, phase]
-
-    def cascade64(x, stages):
-        y = np.asarray(x, np.float64)
-        for c in stages:
-            y = lfilter64(y, c)
-        return y
-
-    def delayed64(y, delays, L: int):
-        """A float64 reading of the ring positions the pipeline reads: the
-        positions in float32 as the contract computes them (block start
-        modulo ``L`` in integers, minus the delay, plus ``L``, modulo
-        ``L``), phase and base from them, then the 14 taps over the
-        float64 samples ``y [C, T]`` that lie at those places in a ring of
-        ``L`` written up to the block's end.  ``delays [C]`` or ``[C, T]``."""
-        out = np.zeros_like(y)
-        rows = np.arange(y.shape[0])[:, None, None]
-        for blk in range(y.shape[-1] // B2):
-            end = (blk + 1) * B2
-            d = (delays[:, blk * B2:end] if delays.ndim > 1
-                 else delays[:, None])
-            first = np.float32((end - B2) % L)
-            # one position a sample, or the block's first alone: the
-            # stream read takes phase and base from it for the whole block
-            ahead = (np.arange(B2, dtype=np.float32) if delays.ndim > 1
-                     else np.float32(0.0))
-            pos = np.remainder((first + ahead) - d + np.float32(L),
-                               np.float32(L))
-            phase = OVERSAMPLING - 1 - (np.floor(pos * np.float32(
-                OVERSAMPLING)).astype(np.int64) % OVERSAMPLING)
-            base = (np.floor(pos).astype(np.int64) + L - TAPS) % L
-            if delays.ndim == 1:
-                base = base + np.arange(B2)
-            place = (base[..., None] + np.arange(TAPS)) % L     # [C, B, 14]
-            # the newest sample at each place: written at time m <= end - 1
-            m = end - 1 - (end - 1 - place) % L
-            taps = np.where(m >= 0, y[rows, np.maximum(m, 0)], 0.0)
-            out[:, end - B2:end] = np.sum(taps * table64.T[phase], -1)
-        return out
-
     torch.cuda.synchronize()
     ops_hook.reset_counts()
 
@@ -1633,7 +1769,7 @@ def main() -> None:
             fail(f"{label}: write position {pipe.state.ring.writepos} != {n}")
         ref = delayed64(cascade64(x2[:, :n], stages),
                         delays[..., :n] if delays.ndim > 1 else delays,
-                        pipe.length)
+                        pipe.length, B2)
         hold_channels(f"{label} ({nblk} blocks of {B2}, ring {pipe.length})",
                       ref, y)
         return pipe
@@ -3443,6 +3579,321 @@ def main() -> None:
         fail("irfft_planes: no shape shows cuFFT using the DC and Nyquist "
              "imaginary parts, so nothing shows the zeroing at work")
     del c1, x1d, xqd
+    torch.cuda.empty_cache()
+
+    # ---- 17. the dtype surface at full width --------------------------------------
+    # Each part at bfloat16 and float16 beside float32, on inputs of their
+    # own seed (phase17_inputs).  Each SNR against float64 must meet its bar
+    # in NARROW_BARS: the JAX package's own narrow output on the same
+    # inputs against the same float64 reference, less 1 dB, measured on
+    # the CPU by tests/narrow_bars.py (this machine has no JAX).
+    from bbcat_dsp_torch.filters.fractional import FractionalDelayLine
+    from bbcat_dsp_torch.filters.resample import Resampler
+
+    inp17 = phase17_inputs(
+        lambda f, g: biquad_coeffs(FilterType.PEQ, f, FS, gain=g))
+    NARROW17 = (("bfloat16", torch.bfloat16), ("float16", torch.float16))
+    WIDE17 = (("float32", torch.float32),) + NARROW17
+
+    def peak_mb(fn):
+        """``fn()`` and the device memory it held at its peak beyond what
+        was allocated before it, MB."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 1e6
+
+    def meets(label, name, part, got):
+        want = NARROW_BARS[name][part]
+        print(f"{label}: {got:.2f} dB against float64, bar {want:.2f} dB "
+              f"(JAX's own less 1 dB)", flush=True)
+        if not got >= want:
+            fail(f"{label}: {got:.2f} dB < the bar {want:.2f} dB")
+
+    def block_times(step, nblk: int) -> str:
+        """Back to back (the mean over ``nblk`` calls ``step(i)``) and
+        device-only (median over 8, behind a spin) ms a call."""
+        step(0)
+        b2b = statistics.mean(per_block_ms(step, nblk, False))
+        it = iter(range(10 ** 6))
+        devo = device_ms(lambda: step(next(it) % nblk), 8)
+        return f"{b2b:.4f} ms back to back, {devo} device-only"
+
+    # (a) the headline two-level engine with a narrow tail queue, through
+    # process_block: an exchange of every IR at super-block 6 and of
+    # channel 31's at 11; exactly the float32 path's launches
+    a17 = inp17["a"]
+    xa17 = torch.from_numpy(a17["x"]).to(dev)
+    k17 = C // 2 - 1
+
+    def stream17(dt):
+        conv = NonUniformConvolver(a17["h1"], BLOCK, RATIO, dtype=dt,
+                                   device=dev)
+        torch.cuda.synchronize()
+        ops_hook.reset_counts()
+        ys = []
+        for j in range(NSUP17):
+            if j == SW_ALL:
+                conv.set_filter(a17["h2"])
+            if j == SW_ONE:
+                conv.set_filter(a17["h3"], channel=k17)
+            ys.append(conv.process_block(xa17[:, j * SB:(j + 1) * SB]))
+        torch.cuda.synchronize()
+        return torch.cat(ys, -1).cpu().numpy(), conv, ops_hook.counts()
+
+    models17 = {ch: two_level_model(a17["x"], a17["h1"], a17["h2"],
+                                    a17["h3"], ch, k17) for ch in CHECKED}
+    runs17 = {}
+    for name, dt in WIDE17:
+        (y, conv, counts), mb = peak_mb(lambda: stream17(dt))
+        label = (f"phase 17 (a) two-level, {name} tail queue, {NSUP17} "
+                 "super-blocks, 2 exchanges")
+        if name == "float32":
+            want17 = {k: v for k, v in counts["launches"].items() if v}
+        exact_launches(label, want17)
+        if y.shape != a17["x"].shape or not np.all(np.isfinite(y)):
+            fail(f"{label}: output shape {y.shape} or non-finite values")
+        q = conv.state.tail.queue
+        if q.dtype != dt or conv.state.xcarry.dtype != torch.float32:
+            fail(f"{label}: tail queue {q.dtype}, xcarry "
+                 f"{conv.state.xcarry.dtype}")
+        s = min(snr_db(models17[ch], y[ch]) for ch in CHECKED)
+        if not all(click_free(y[ch]) for ch in CHECKED):
+            fail(f"{label}: a click")
+        if name != "float32":
+            meets(f"{label}, channels {CHECKED} against the crossfade "
+                  "model", name, "a", s)
+            for call, arg in (("process", xa17[:, :6 * SB]),
+                              ("process_small_block", xa17[:, :BLOCK])):
+                try:
+                    getattr(conv, call)(arg)
+                except ValueError as e:
+                    if "TypeError" not in str(e):
+                        fail(f"{label}: {call} raised {e}")
+                else:
+                    fail(f"{label}: {call} ran on a narrow engine")
+        ts = block_times(lambda i, c=conv: c.process_block(
+            xa17[:, i * SB:(i + 1) * SB]), NSUP17)
+        runs17[name] = y
+        print(f"{label}: {s:.2f} dB against float64 (worst checked "
+              f"channel), {snr_db(runs17['float32'], y):.2f} dB against "
+              f"the float32 engine; tail queue {q.nbytes / 1e6:.2f} MB; "
+              f"process_block {ts}; peak memory {mb:.1f} MB ({card})",
+              flush=True)
+    del xa17, conv
+    torch.cuda.empty_cache()
+
+    # (b) config #3 narrow: the renderer's EQ parameters and state and its
+    # matrix queue in the narrow type, the output float32
+    b17 = inp17["b"]
+    xb17 = torch.from_numpy(b17["x"]).to(dev)
+    refb17 = binaural_model(b17["x"], b17["eq"], b17["h1"], b17["h2"])
+
+    def rend17(dt):
+        rend = BinauralRenderer(b17["h1"], block=BLOCK, eq_stages=[b17["eq"]],
+                                fs=FS, dtype=dt, device=dev)
+        torch.cuda.synchronize()
+        ops_hook.reset_counts()
+        ys = []
+        for i in range(NB17):
+            if i == SW17:
+                rend.set_hrtf(b17["h2"])
+            ys.append(rend.process_block(xb17[:, i * BLOCK:(i + 1) * BLOCK]))
+        torch.cuda.synchronize()
+        return torch.cat(ys, -1), rend, ops_hook.counts()
+
+    for name, dt in WIDE17:
+        (y, rend, counts), mb = peak_mb(lambda: rend17(dt))
+        label = f"phase 17 (b) config #3 BinauralRenderer dtype={name}"
+        check_path(label, counts, MATRIX_KERNELS)
+        if y.dtype != torch.float32 or rend.state.conv.queue.dtype != dt:
+            fail(f"{label}: output {y.dtype}, queue "
+                 f"{rend.state.conv.queue.dtype}")
+        y = y.cpu().numpy()
+        s = min(snr_db(refb17[o], y[o]) for o in range(2))
+        if not np.all(np.isfinite(y)) or not all(click_free(r) for r in y):
+            fail(f"{label}: non-finite values or a click")
+        fed = (y.shape[1] // rend.meter.step) * rend.meter.step
+        z = block_powers64(kweight64(y)[:, :fed], [1.0, 1.0],
+                           start=-(rend.meter.blk - rend.meter.step))
+        lk, lk64 = rend.loudness()["integrated_lkfs"], gated_lkfs(z[3:])
+        if not abs(lk - lk64) <= 0.01:
+            fail(f"{label}: meter {lk:.4f} against float64 {lk64:.4f}")
+        if name != "float32":
+            meets(f"{label}, both ears against the float64 chain", name, "b",
+                  s)
+        ts = block_times(lambda i, r=rend: r.process_block(
+            xb17[:, i * BLOCK:(i + 1) * BLOCK]), NB17)
+        print(f"{label}: {s:.2f} dB against float64 (worse ear), meter "
+              f"{lk:.4f} LUFS against {lk64:.4f}; process_block {ts}; peak "
+              f"memory {mb:.1f} MB ({card})", flush=True)
+    del xb17, rend
+    torch.cuda.empty_cache()
+
+    # (c) config #2 narrow: both delay paths and the modal fallback, the
+    # output in the narrow type; then a FractionalDelayLine, a
+    # SoundDelayBuffer and a Resampler at 64 channels
+    c17 = inp17["c"]
+    x2n = torch.from_numpy(c17["x"]).to(dev)
+
+    def pipe17(dt, stages, delays, nblk):
+        pipe = EQDelayPipeline(stages, C17, B17, 256.0, FS, dt, device=dev)
+        dd = torch.from_numpy(delays).to(dev)
+
+        def step(i):
+            d = dd[:, i * B17:(i + 1) * B17] if dd.dim() > 1 else dd
+            return pipe.process_block(x2n[:, i * B17:(i + 1) * B17], d)
+
+        return torch.cat([step(i) for i in range(nblk)], -1), pipe, step
+
+    L17 = 1 << int(np.ceil(np.log2(256 + 14 + B17)))   # the ring: 8192
+    torch.cuda.synchronize()
+    ops_hook.reset_counts()
+    for part, stages, delays, nblk in (
+            ("c stream", c17["eq"], c17["steady"], NBLK17),
+            ("c gather", c17["eq"], c17["glide"], NBLK17),
+            ("c modal", c17["twice"], c17["steady"], 4)):
+        n = nblk * B17
+        ref = delayed64(cascade64(c17["x"][:, :n], stages),
+                        delays[..., :n] if delays.ndim > 1 else delays,
+                        L17, B17)
+        for name, dt in WIDE17:
+            (y, pipe, step), mb = peak_mb(
+                lambda: pipe17(dt, stages, delays, nblk))
+            label = f"phase 17 ({part}) config #2 EQDelayPipeline dtype={name}"
+            if pipe.length != L17 or (pipe.psos is None) != (
+                    part == "c modal"):
+                fail(f"{label}: ring {pipe.length}, parallel form "
+                     f"{pipe.psos is not None}")
+            if y.dtype != dt or pipe.state.ring.data.dtype != dt:
+                fail(f"{label}: output {y.dtype}, ring "
+                     f"{pipe.state.ring.data.dtype}")
+            y = y.float().cpu().numpy()
+            s = min(snr_db(r, t) for r, t in zip(ref, y))
+            if name != "float32":
+                meets(f"{label}, worst channel", name, part, s)
+            ts = block_times(step, nblk)
+            print(f"{label}: {s:.2f} dB (worst channel); process_block "
+                  f"{ts}; peak memory {mb:.1f} MB ({card})", flush=True)
+    counts = ops_hook.counts()
+    if any(counts["launches"].values()) or any(counts["plain"].values()):
+        fail(f"phase 17 (c) ran a kernel of the port or a plain version: "
+             f"{counts}")
+    xs17 = torch.from_numpy(c17["xs"]).to(dev)
+    ds17 = torch.from_numpy(c17["ds"]).to(dev)
+    ref_line = fractional_reference(c17["xs"], c17["ds"], 8192, 1024)
+    twin = Resampler(C, 44100.0 / 48000.0, 1024, device=dev)
+    wide_out = [twin.process(xs17[:, k * 1024:(k + 1) * 1024])
+                for k in range(8)]
+    for name, dt in NARROW17:
+        line = FractionalDelayLine(C, 8192, dt, device=dev)
+        dbuf = SoundDelayBuffer(C, 8192, dt, device=dev)
+        rs = Resampler(C, 44100.0 / 48000.0, 1024, dt, device=dev)
+        reads, exact = [], True
+        for k in range(8):
+            blk = xs17[:, k * 1024:(k + 1) * 1024]
+            line.write(blk)
+            reads.append(line.read(ds17))
+            dbuf.write(blk)
+            exact &= torch.equal(dbuf.read(1024, 1024), blk.to(dt))
+            exact &= torch.equal(rs.process(blk), wide_out[k])
+        packed = dbuf.read_packed(SampleFormat.INT24, False, 4096, 4096)
+        twin_buf = SoundDelayBuffer(C, 8192, device=dev)
+        twin_buf.write(xs17.to(dt).float())
+        exact &= np.array_equal(packed, twin_buf.read_packed(
+            SampleFormat.INT24, False, 4096, 4096))
+        y = torch.cat(reads, -1)
+        if y.dtype != dt or not exact:
+            fail(f"phase 17 (c) {name} small ops: read {y.dtype}, the delay "
+                 "buffer or the resampler not exact")
+        s = min(snr_db(r, t) for r, t in zip(ref_line,
+                                              y.float().cpu().numpy()))
+        meets(f"phase 17 (c) FractionalDelayLine dtype={name}, {C} ch x "
+              f"8192, 8 writes of 1024, 512 reads a channel after each, "
+              f"worst channel", name, "c line", s)
+        print(f"phase 17 (c) {name}: SoundDelayBuffer reads and INT24 "
+              "packed frames equal the rounded input; the Resampler's output "
+              "is the float32 one, exactly (its history is float32 after a "
+              "block, as the reference's)", flush=True)
+    del x2n, xs17
+    torch.cuda.empty_cache()
+
+    # (d) config #4 narrow: the meter and the mixdown at 128 channels x 1 s
+    d17 = inp17["d"]
+    xd17 = torch.from_numpy(d17["x"]).to(dev)
+    lk64 = meter_reference(d17["x"])
+    mix64 = d17["gains"] @ d17["x"].astype(np.float64)
+    for name, dt in WIDE17:
+        meter = LoudnessMeter(C4_17, FS, dtype=dt, device=dev)
+        mix = MixdownPipeline(d17["gains"], FS, dtype=dt, device=dev)
+
+        def step(_):
+            meter.process(xd17)
+            return mix.process_block(xd17)
+
+        y, mb = peak_mb(lambda: step(0))
+        lk = meter.integrated()
+        label = f"phase 17 (d) config #4 meter and mixdown dtype={name}"
+        if (meter.state.sq_tail.dtype != dt or mix.gains.dtype != dt
+                or y.dtype != torch.float32):
+            fail(f"{label}: tail {meter.state.sq_tail.dtype}, gains "
+                 f"{mix.gains.dtype}, output {y.dtype}")
+        s = min(snr_db(r, t) for r, t in zip(mix64, y.cpu().numpy()))
+        err = abs(lk - lk64)
+        if name != "float32":
+            meets(f"{label}, the mix", name, "d mixdown", s)
+            if not err <= NARROW_LU[name]:
+                fail(f"{label}: integrated {lk:.4f} LUFS, {err:.4f} LU from "
+                     f"float64, the bar {NARROW_LU[name]} LU")
+        ts = block_times(step, 1)
+        print(f"{label}: integrated {lk:.4f} LUFS against float64 "
+              f"{lk64:.4f} ({err:.4f} LU); mix {s:.2f} dB; the step (1 s) "
+              f"{ts}; peak memory {mb:.1f} MB ({card})", flush=True)
+    del xd17
+    torch.cuda.empty_cache()
+
+    # (e) narrow state files: (a)-(c) stopped half-way, written, read into
+    # fresh engines and continued on the card (>= 110 dB against the
+    # uninterrupted stream; bit-exact is expected)
+    tmpdir = tempfile.TemporaryDirectory()
+    ckpt = str(Path(tmpdir.name) / "state.pkl")
+    xa17 = torch.from_numpy(a17["x"]).to(dev)
+    xb17 = torch.from_numpy(b17["x"]).to(dev)
+    x2n = torch.from_numpy(c17["x"]).to(dev)
+    steady17 = torch.from_numpy(c17["steady"]).to(dev)
+
+    def sbs(e, lo, hi):
+        return [e.process_block(xa17[:, j * SB:(j + 1) * SB])
+                for j in range(lo, hi)]
+
+    def blocks(e, lo, hi):
+        return [e.process_block(xb17[:, i * BLOCK:(i + 1) * BLOCK])
+                for i in range(lo, hi)]
+
+    def eqd(e, lo, hi):
+        return [e.process_block(x2n[:, i * B17:(i + 1) * B17],
+                                steady17).float() for i in range(lo, hi)]
+
+    for name, dt in NARROW17:
+        resumed(f"phase 17 (e) two-level {name} tail queue",
+                lambda: NonUniformConvolver(a17["h1"], BLOCK, RATIO,
+                                            dtype=dt, device=dev),
+                lambda e: sbs(e, 0, 8), lambda e: sbs(e, 8, 16),
+                {"fused_head", "rfft_half", "head_mac", "irfft_tail"})
+        resumed(f"phase 17 (e) BinauralRenderer dtype={name}",
+                lambda: BinauralRenderer(b17["h1"], block=BLOCK,
+                                         eq_stages=[b17["eq"]], fs=FS,
+                                         dtype=dt, device=dev),
+                lambda e: blocks(e, 0, 24), lambda e: blocks(e, 24, 48),
+                MATRIX_KERNELS)
+        resumed(f"phase 17 (e) EQDelayPipeline dtype={name}",
+                lambda: EQDelayPipeline(c17["eq"], C17, B17, 256.0, FS, dt,
+                                        device=dev),
+                lambda e: eqd(e, 0, 8), lambda e: eqd(e, 8, 16), set())
+    tmpdir.cleanup()
+    del xa17, xb17, x2n
     torch.cuda.empty_cache()
 
     for name in results:

@@ -14,8 +14,9 @@ the narrow stream's distance from float32 (55.8-60.6 dB in bfloat16,
 73.7-78.5 dB in float16 here, JAX's the same to 0.01 dB) is held within
 3 dB of JAX's.
 
-The refusals (float64, integer types; any narrow type in the two-level
-engine) and two faults of the reference are pinned here too, with the
+The refusals (float64, integer types; the narrow two-level engine's
+``process`` and ``process_small_block``) and two faults of the reference
+are pinned here too, with the
 queue crossing ``utils/interop.py`` and state files both ways, and K9's
 plain version and gradient over a narrow queue.
 """
@@ -209,11 +210,27 @@ def test_reset_keeps_the_dtype_in_the_port_and_widens_it_in_jax(rng, tdt,
 
 @pytest.mark.parametrize("bad", [torch.bfloat16, torch.float16, torch.float64])
 def test_the_two_level_engine_refuses_other_dtypes(rng, bad):
-    with pytest.raises(ValueError, match="float32 only"):
-        NonUniformConvolver(_irs(rng, 2, N), block=16, ratio=4, dtype=bad,
-                            device="cpu")
-    conv = NonUniformConvolver(_irs(rng, 2, N), 16, 4, None, torch.float32,
-                               device="cpu")
+    """float64 is refused at construction; a narrow engine builds and runs
+    ``process_block``, and refuses the two paths the reference's narrow
+    engine fails in (its ``TypeError``, pinned below) with a
+    ``ValueError`` at call time."""
+    irs = _irs(rng, 2, N)
+    if bad == torch.float64:
+        with pytest.raises(ValueError, match="queue dtype"):
+            NonUniformConvolver(irs, block=16, ratio=4, dtype=bad,
+                                device="cpu")
+    else:
+        conv = NonUniformConvolver(irs, block=16, ratio=4, dtype=bad,
+                                   device="cpu")
+        x = rng.standard_normal((2, 64)).astype(np.float32)
+        y = conv.process_block(x)
+        assert y.dtype == torch.float32 and torch.isfinite(y).all()
+        assert conv.state.tail.queue.dtype == bad
+        with pytest.raises(ValueError, match="TypeError"):
+            conv.process(x)
+        with pytest.raises(ValueError, match="TypeError"):
+            conv.process_small_block(x[:, :16])
+    conv = NonUniformConvolver(irs, 16, 4, None, torch.float32, device="cpu")
     assert conv.state.tail.queue.dtype == torch.float32
 
 

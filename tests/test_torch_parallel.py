@@ -483,6 +483,33 @@ def test_shard_state_and_channels_cut_every_leaf_by_channel(n):
                                                                       "ch"))
 
 
+def test_make_mesh_and_shard_channels_take_the_references_keywords():
+    """``make_mesh(n_devices=...)`` and ``shard_channels(arr=...)`` as the
+    reference names them (``bbcat_dsp_tpu/parallel/mesh.py:27``, ``:44``),
+    and by position as the port's callers pass them, in a gloo world of
+    one in this process."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        x = torch.arange(12.0).reshape(4, 3)
+        for mesh in (parallel.make_mesh(n_devices=1, axis_name="ch",
+                                        device="cpu"),
+                     parallel.make_mesh(1, "ch", device="cpu")):
+            assert mesh.size("ch") == 1
+            assert torch.equal(parallel.shard_channels(arr=x, mesh=mesh), x)
+            assert torch.equal(parallel.shard_channels(x, mesh, 1), x)
+    finally:
+        dist.destroy_process_group()
+    assert jpar.make_mesh(n_devices=2).devices.size == 2
+
+
 def test_pod_render_example_runs_and_checks_itself():
     lines = []
     r = pod_render.main(C=16, block=32, ratio=4, n_super=160, world=2,
