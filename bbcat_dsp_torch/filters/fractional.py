@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..buffers.ring import Ring, ring_write
-from ..utils.precision import NARROW, storage_dtype
+from ..utils.precision import NARROW, storage_dtype, sum_in_order
 
 __all__ = ["OVERSAMPLING", "TAPS", "ADDITIONAL_DELAY", "polyphase_table",
            "additional_delay_required", "fractional_read",
@@ -105,7 +105,7 @@ def fractional_read(buf: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     if buf.dtype in NARROW:
         # each product rounded to the narrow type, the sum in float32 and
         # rounded once, as the reference's jnp.sum of a narrow operand
-        return (gathered * weights).float().sum(-1).to(buf.dtype)
+        return sum_in_order(gathered * weights, -1).to(buf.dtype)
     return (gathered * weights).sum(-1)
 
 

@@ -56,7 +56,7 @@ import torch
 
 from ..ops.autograd import needs_derivative
 from ..utils.precision import (NARROW, full_f32, host_tensor, promoted,
-                               storage_dtype)
+                               storage_dtype, sum_in_order)
 
 __all__ = ["ModalParams", "ModalState", "modal_params", "modal_init",
            "modal_apply", "modal_from_df2t", "ParallelCascadeParams",
@@ -383,11 +383,19 @@ def _narrow_cpx_scan(ar, ai, vr, vi, s0r, s0i, cd: torch.dtype):
 
 def _narrow_bmm(a, m, cd: torch.dtype):
     """``[K, B, n, L] @ [K, L, L]`` in ``cd``; a narrow ``cd`` runs the
-    product in float32 and rounds its result."""
+    product in float32 and rounds its result.  The rows go in as one
+    ``[K, B n, L]`` batch: with ``m`` broadcast over a stride-0 batch axis
+    the CPU takes ATen's own loop, which rounds every product before it
+    adds (no FMA), where the reference's dot and the strided batched
+    product fuse each multiply-add in sequence."""
+    K, Bb, n, L = a.shape
+    rows = a.reshape(K, Bb * n, L)
     with full_f32():
         if cd in NARROW:
-            return torch.matmul(a.float(), m.float()[:, None]).to(cd)
-        return torch.matmul(a, m[:, None])
+            y = torch.bmm(rows.float(), m.float()).to(cd)
+        else:
+            y = torch.bmm(rows, m)
+    return y.reshape(K, Bb, n, L)
 
 
 def _narrow_scan_const(pr, pi, vr, vi, s0r, s0i, cd: torch.dtype):
@@ -595,7 +603,7 @@ def _parallel_cascade_apply_narrow(x, params: ParallelCascadeParams,
                     params.c)
     mix = rr * sr - ri * si
     # the reference's sum takes a narrow operand in float32, rounds once
-    mix = mix.float().sum(0).to(cd) if cd in NARROW else mix.sum(0)
+    mix = sum_in_order(mix, 0).to(cd) if cd in NARROW else mix.sum(0)
     y = c * x.to(cd) + mix
     last = torch.stack([sr[..., -1], si[..., -1]])
     return y, ParallelCascadeState(*last.unbind(0))

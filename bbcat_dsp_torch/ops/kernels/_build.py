@@ -66,6 +66,7 @@ _SIGNATURES = {
     "bbcat_rotated_mac": [_P] * 3 + [_I] * 5 + [_P],
     "bbcat_half_fft_plan": [_I, _P, _P, _I, _P, _P],
     "bbcat_xt_unrolled_parts": [],
+    "bbcat_rotated_mac_schedule": [_I],
 }
 
 _LIB: ctypes.CDLL | None = None

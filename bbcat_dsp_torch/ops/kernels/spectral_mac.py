@@ -11,7 +11,10 @@ uncounted MAC inside the plain K1 and K2); ``rotated_mac_plain`` follows
 
 K9 reads the spectral queue in the convolvers' storage type (float32,
 bfloat16 or float16) and widens it to float32; each type's launches and
-plain calls count under its own name (:data:`ROTATED_MAC_NAMES`).
+plain calls count under its own name (:data:`ROTATED_MAC_NAMES`).  Its
+CUDA kernel splits the partitions over the rows of a CTA and adds the
+rows' sums in a fixed order (:data:`ROTATED_MAC_SCHEDULE`), so its float32
+sums take another order than the plain version's.
 """
 
 from __future__ import annotations
@@ -22,13 +25,18 @@ from . import _build
 from .spectral_fir import cplane_mac
 
 __all__ = ["head_mac_plain", "head_mac_cuda", "rotated_mac_plain",
-           "rotated_mac_cuda", "ROTATED_MAC_NAMES"]
+           "rotated_mac_cuda", "ROTATED_MAC_NAMES", "ROTATED_MAC_SCHEDULE"]
 
 # the queue's type -> K9's count name and the kernel's type code
 ROTATED_MAC_NAMES = {torch.float32: "rotated_mac",
                      torch.bfloat16: "rotated_mac_bf16",
                      torch.float16: "rotated_mac_f16"}
 _QTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the CUDA K9's schedule, as csrc/spectral_mac.cu's constants (in its
+# order, which bbcat_rotated_mac_schedule reports): threads of a CTA along
+# the bins, groups of partitions, partitions loaded ahead, bins a thread
+# takes where C F is a multiple of it
+ROTATED_MAC_SCHEDULE = {"lanes": 16, "split": 8, "ahead": 4, "vec": 4}
 
 
 def head_mac_plain(xext: torch.Tensor, H: torch.Tensor,

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 __all__ = ["DTYPES", "NARROW", "full_f32", "host_tensor", "promoted",
-           "storage_dtype"]
+           "storage_dtype", "sum_in_order"]
 
 # the storage types a ``dtype`` argument takes; the JAX package with
 # 64-bit types off quietly makes float32 of a float64 request, the port
@@ -66,6 +66,20 @@ def promoted(*dtypes: torch.dtype) -> torch.dtype:
     if all(d == dtypes[0] for d in dtypes):
         return dtypes[0]
     return torch.float64 if torch.float64 in dtypes else torch.float32
+
+
+def sum_in_order(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The JAX package's ``jnp.sum`` of a narrow operand along ``dim``, as
+    it runs operation by operation: the terms widened to float32 and added
+    one after the other in index order (XLA:CPU's order at the port's
+    lengths, up to 16 terms).  The caller rounds the float32 sum once.
+    ``torch.sum`` keeps several partial sums along a short last axis, so
+    its float32 result, and now and then the rounded one, differs."""
+    terms = t.float().movedim(dim, 0)
+    acc = terms[0]
+    for term in terms[1:]:
+        acc = acc + term
+    return acc
 
 
 @contextmanager

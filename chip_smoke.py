@@ -15,7 +15,10 @@ Phases, each of which exits nonzero on failure:
    32 to 8192, and at row counts that leave a CTA partly empty; K2 at
    every partition count of its unrolled kernel and at counts of its
    general one, at every queue cursor; K9 also over a bfloat16 and a
-   float16 queue, each a kernel of its own in the JSON line; K3, K4, K7
+   float16 queue, each a kernel of its own in the JSON line, on both its
+   vector and its one-bin path, and timed warm and with a cold L2 beside
+   the kernel as first ported (``K9_AS_PORTED_SRC``), a launch that does
+   next to nothing and ``torch.sum`` over the same bytes; K3, K4, K7
    and K9 at BASELINE config #1's shapes, C = 1), with
    times (CUDA events, median of 20 launches) at the main paths' shapes
    (four each for K3, K4 and K7), each beside its bound: the
@@ -244,6 +247,106 @@ RENDER_KERNELS = {"fused_head", "rfft_half", "xt_grouped_mac", "irfft_tail",
 STREAM_KERNELS = RENDER_KERNELS | {"head_mac"}
 BLOCK_KERNELS = {"rfft_half", "rotated_mac", "irfft_tail", "head_mac"}
 
+
+# K9 as first ported: one thread per (c, f) walks all P partitions, a
+# narrow queue in 2-byte loads.  Kept here only to time it beside the
+# redesigned kernel in csrc/spectral_mac.cu within one call (phase 3); the
+# port never calls it and counts nothing.
+K9_AS_PORTED_SRC = r"""
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+
+namespace {
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float widen(__half v) { return __half2float(v); }
+
+template <typename Q>
+__global__ void rotated_mac_as_ported(const Q* __restrict__ queue,
+                                      const float* __restrict__ H,
+                                      float* __restrict__ out, int P, int slot,
+                                      long long S) {
+  const long long n = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (n >= S) return;
+  const long long plane = static_cast<long long>(P) * S;
+  float ar = 0.0f, ai = 0.0f;
+  int k = slot;
+#pragma unroll 4
+  for (int p = 0; p < P; ++p) {
+    const long long q = static_cast<long long>(k) * S + n;
+    const long long h = static_cast<long long>(p) * S + n;
+    const float qr = widen(queue[q]), qi = widen(queue[plane + q]);
+    const float gr = H[h], gi = H[plane + h];
+    ar += qr * gr - qi * gi;
+    ai += qr * gi + qi * gr;
+    k = (k == 0) ? P - 1 : k - 1;
+  }
+  out[n] = ar;
+  out[S + n] = ai;
+}
+
+template <typename Q>
+void launch(const void* queue, const float* H, float* out, int P, int slot,
+            long long S, cudaStream_t stream) {
+  rotated_mac_as_ported<Q><<<static_cast<unsigned>((S + 127) / 128), 128, 0,
+                             stream>>>(static_cast<const Q*>(queue), H, out,
+                                       P, slot, S);
+}
+}  // namespace
+
+extern "C" int k9_as_ported(const void* queue, const float* H, float* out,
+                            int P, int C, int F, int slot, int qtype,
+                            cudaStream_t stream) {
+  const long long S = static_cast<long long>(C) * F;
+  if (qtype == 0) launch<float>(queue, H, out, P, slot, S, stream);
+  else if (qtype == 1) launch<__nv_bfloat16>(queue, H, out, P, slot, S, stream);
+  else launch<__half>(queue, H, out, P, slot, S, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def start_k9_as_ported(nvcc: str, flags: list, where: Path):
+    """Start ``nvcc`` on :data:`K9_AS_PORTED_SRC` into ``where``; returns
+    the process and the library's path (for :func:`load_k9_as_ported`)."""
+    src, so = where / "k9_as_ported.cu", where / "libk9_as_ported.so"
+    src.write_text(K9_AS_PORTED_SRC)
+    cmd = [nvcc, *[f for f in flags if f not in ("-Xptxas", "-v")],
+           "-shared", "-o", str(so), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), so
+
+
+def load_k9_as_ported(proc, so: Path):
+    """Wait for :func:`start_k9_as_ported`'s build and bind it: a callable
+    ``(queue, H, slot) -> [2, C, F]`` with K9's contract."""
+    import ctypes
+
+    import torch
+
+    log = proc.communicate()[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on the as-ported K9:\n{log}")
+    fn = ctypes.CDLL(str(so)).k9_as_ported
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    codes = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+    def call(queue, H, slot):
+        _, P, Cc, F = H.shape
+        out = torch.empty((2, Cc, F), dtype=torch.float32, device=H.device)
+        code = fn(queue.data_ptr(), H.data_ptr(), out.data_ptr(), P, Cc, F,
+                  slot % P, codes[queue.dtype],
+                  torch.cuda.current_stream(H.device).cuda_stream)
+        if code != 0:
+            raise RuntimeError(f"the as-ported K9: CUDA error {code}")
+        return out
+
+    return call
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
@@ -546,7 +649,16 @@ def main() -> None:
     dev = torch.device("cuda")
 
     # ---- 2. build ------------------------------------------------------------
-    _build.library()
+    # the as-ported K9 (timing only) compiles beside the port's kernels
+    as_ported_dir = tempfile.TemporaryDirectory()
+    k9_old_build = start_k9_as_ported(_build._nvcc(), _build.NVCC_FLAGS,
+                                      Path(as_ported_dir.name))
+    try:
+        _build.library()
+    except BaseException:
+        k9_old_build[0].kill()
+        raise
+    k9_as_ported = load_k9_as_ported(*k9_old_build)
     print(f"build: {_build.BUILD_SECONDS:.1f} s", flush=True)
     for line in _build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -558,18 +670,25 @@ def main() -> None:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    def median_ms(fn, iters: int = 20) -> float:
+    l2_flush = []
+
+    def median_ms(fn, iters: int = 20, cold: bool = False) -> float:
         """Device time of ``fn``'s launches, median over ``iters`` runs.
         A ~2 ms spin on the stream first lets the host enqueue all of
         ``fn`` before the start event fires, so host launch overhead stays
-        outside the events."""
+        outside the events.  ``cold``: a read of 256 MB (five times the
+        L2) before each run, so ``fn`` finds none of its operands there."""
         fn()
         torch.cuda.synchronize()
+        if cold and not l2_flush:
+            l2_flush.append(torch.empty(64 << 20, device=dev))
         times = []
         for _ in range(iters):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             torch.cuda._sleep(4_000_000)
+            if cold:
+                l2_flush[0].sum()
             a.record()
             fn()
             b.record()
@@ -854,61 +973,104 @@ def main() -> None:
            *k7_cost(C, P_UNIFORM, T_RENDER // BLOCK, BLOCK + 1))
 
     # K9 rotated MAC: (P, C, F, slot); the BlockConvolver step's shape at
-    # two cursors, then small odd ones
-    k9_err, bad = None, []
-    for P, Cc, F, slot in ((P_UNIFORM, C, BLOCK + 1, 0),
-                           (P_UNIFORM, C, BLOCK + 1, 37), (5, 3, 17, 4),
-                           (1, 1, 9, 0), (7, 5, 33, 6)):
-        args = (randn(2, P, Cc, F), randn(2, P, Cc, F))
-        got = k79.rotated_mac_cuda(*args, slot)
-        want = k79.rotated_mac_plain(*args, slot)
-        s = snr_db(want.cpu().numpy(), got.cpu().numpy())
-        if not s >= 120.0:
-            bad.append(f"rotated_mac P={P} C={Cc} F={F} slot={slot}")
-        print(f"rotated_mac P={P} C={Cc} F={F} slot={slot}: {s:.1f} dB",
-              flush=True)
-        if slot == 37:
-            k9_err = float((got - want).abs().max())
-            bench_args = args
-    if bad:
-        fail(f"below 120 dB: {bad}")
-    record("rotated_mac", "bbcat_dsp_torch/csrc/spectral_mac.cu",
-           tpu_kernel("rotated_mac_pallas"), k9_err,
-           median_ms(lambda: k79.rotated_mac_cuda(*bench_args, 37)),
-           median_ms(lambda: k79.rotated_mac_plain(*bench_args, 37)),
-           8.0 * C * (BLOCK + 1) * (2 * P_UNIFORM + 1),
-           8.0 * P_UNIFORM * C * (BLOCK + 1))
-
-    # K9 over a narrow queue (the convolvers' dtype; phase 16): bfloat16
-    # and float16 at the step's shape and small odd ones, each against the
-    # plain version on the same stored values (both widen them)
+    # three cursors, BASELINE config #1's block (C F = 513: one bin a
+    # thread), small odd shapes, small ones on the vector path (C F a
+    # multiple of 4, P below the kernel's row count) and the step's shape
+    # with its planes one element off a vector boundary; float32 at 120 dB,
+    # a bfloat16 and a float16 queue at 110 dB (each a kernel of its own in
+    # the JSON line), each launch onto memory that held NaN just before
+    schedule = [_build.library().bbcat_rotated_mac_schedule(i)
+                for i in range(4)]
+    if schedule != list(k79.ROTATED_MAC_SCHEDULE.values()):
+        fail(f"rotated_mac: the kernel's schedule {schedule}, the wrapper "
+             f"says {k79.ROTATED_MAC_SCHEDULE}")
     FQ = BLOCK + 1
-    for name, dt in (("rotated_mac_bf16", torch.bfloat16),
-                     ("rotated_mac_f16", torch.float16)):
+    K9_NAMES = (("rotated_mac", torch.float32, 120.0),
+                ("rotated_mac_bf16", torch.bfloat16, 110.0),
+                ("rotated_mac_f16", torch.float16, 110.0))
+    K9_SHAPES = ((P_UNIFORM, C, FQ, 37, 0), (P_UNIFORM, C, FQ, 0, 0),
+                 (P_UNIFORM, C, FQ, P_UNIFORM - 1, 0), (8, 1, FQ, 5, 0),
+                 (5, 3, 17, 4, 0), (1, 1, 9, 0, 0), (7, 5, 33, 6, 0),
+                 (5, 4, 17, 2, 0), (3, 8, 33, 1, 0), (P_UNIFORM, C, FQ, 37, 1))
+
+    def k9_operands(dt, P, Cc, F, off):
+        """Queue and H at ``[2, P, Cc, F]``, each ``off`` elements into
+        its own allocation (a contiguous view)."""
+        n = 2 * P * Cc * F
+        q = randn(n + off)[off:].to(dt).view(2, P, Cc, F)
+        return q, randn(n + off)[off:].view(2, P, Cc, F)
+
+    def k9_cost(P, Cc, F, qbytes_each):
+        """The queue in its type, H in float32 and the output; one
+        complex MAC a partition and bin."""
+        return ((qbytes_each + 8.0) * P * Cc * F + 8.0 * Cc * F,
+                8.0 * P * Cc * F)
+
+    k9_bench = {}
+    for name, dt, bar in K9_NAMES:
         bad = []
-        for P, Cc, F, slot in ((P_UNIFORM, C, FQ, 37), (P_UNIFORM, C, FQ, 0),
-                               (8, 1, FQ, 3), (5, 3, 17, 4), (1, 1, 9, 0)):
-            args = (randn(2, P, Cc, F).to(dt), randn(2, P, Cc, F))
+        for P, Cc, F, slot, off in K9_SHAPES:
+            args = k9_operands(dt, P, Cc, F, off)
+            poison = torch.full((2, Cc, F), float("nan"), device=dev)
+            del poison          # the launch's output lands on it
             got = k79.rotated_mac_cuda(*args, slot)
             want = k79.rotated_mac_plain(*args, slot)
             s = snr_db(want.cpu().numpy(), got.cpu().numpy())
-            if not s >= 110.0:
-                bad.append(f"{name} P={P} C={Cc} F={F} slot={slot}")
-            print(f"{name} P={P} C={Cc} F={F} slot={slot}: {s:.1f} dB",
-                  flush=True)
-            if slot == 37:
-                err, bench_args = float((got - want).abs().max()), args
+            tag = f"{name} P={P} C={Cc} F={F} slot={slot}" + (
+                f" off={off}" if off else "")
+            if not s >= bar:
+                bad.append(tag)
+            print(f"{tag}: {s:.1f} dB", flush=True)
+            if (P, Cc, slot, off) == (P_UNIFORM, C, 37, 0):
+                k9_bench[name] = (float((got - want).abs().max()), args)
+            if (P, Cc, F, off) == (8, 1, FQ, 0):
+                k9_bench[name + " config #1"] = args
         if bad:
-            fail(f"below 110 dB: {bad}")
-        qbytes = 2.0 * P_UNIFORM * C * FQ * bench_args[0].element_size()
-        print(f"{name}: the queue {qbytes / 1e6:.1f} MB against "
-              f"{qbytes * 2 / 1e6:.1f} MB in float32", flush=True)
+            fail(f"below {bar:.0f} dB: {bad}")
+
+    # K9's times, warm and with a cold L2, beside the as-ported kernel's
+    # (K9_AS_PORTED_SRC) on the same operands in this call: the step's
+    # shape at slot 37 and config #1's block, in each queue type
+    for name, dt, _ in K9_NAMES:
+        err, bench_args = k9_bench[name]
+        qsize = bench_args[0].element_size()
+        rows = []
+        for label, (P, Cc, F, slot), ops in (
+                (f"P={P_UNIFORM} C={C} F={FQ} slot=37",
+                 (P_UNIFORM, C, FQ, 37), bench_args),
+                (f"config #1 P=8 C=1 F={FQ} slot=5", (8, 1, FQ, 5),
+                 k9_bench[name + " config #1"])):
+            new = [median_ms(lambda: k79.rotated_mac_cuda(*ops, slot),
+                             cold=cold) for cold in (False, True)]
+            old = [median_ms(lambda: k9_as_ported(*ops, slot), cold=cold)
+                   for cold in (False, True)]
+            b_ms, _ = bound(*k9_cost(P, Cc, F, 2 * qsize))
+            rows.append(new)
+            print(f"{name} {label}: kernel {new[0]:.4f} ms warm, "
+                  f"{new[1]:.4f} ms cold L2 ({100 * b_ms / new[0]:.0f}%, "
+                  f"{100 * b_ms / new[1]:.0f}% of the bound "
+                  f"{b_ms:.4f} ms); as first ported {old[0]:.4f} ms warm, "
+                  f"{old[1]:.4f} ms cold L2  ({card})", flush=True)
+        if dt != torch.float32:
+            qbytes = 2.0 * P_UNIFORM * C * FQ * qsize
+            print(f"{name}: the queue {qbytes / 1e6:.1f} MB against "
+                  f"{qbytes * 2 / 1e6:.1f} MB in float32", flush=True)
         record(name, "bbcat_dsp_torch/csrc/spectral_mac.cu",
-               tpu_kernel("rotated_mac_pallas"), err,
-               median_ms(lambda: k79.rotated_mac_cuda(*bench_args, 37)),
+               tpu_kernel("rotated_mac_pallas"), err, rows[0][0],
                median_ms(lambda: k79.rotated_mac_plain(*bench_args, 37)),
-               qbytes + 8.0 * C * FQ * (P_UNIFORM + 1),
-               8.0 * P_UNIFORM * C * FQ)
+               *k9_cost(P_UNIFORM, C, FQ, 2 * qsize))
+    # what holds K9 back once its loads are in flight: a launch that does
+    # next to nothing, and one library read of the step's float32 bytes
+    # (timed only, never used by the port)
+    tiny = (randn(2, 1, 1, 1), randn(2, 1, 1, 1))
+    blob = torch.empty(int(k9_cost(P_UNIFORM, C, FQ, 8)[0]) // 4, device=dev)
+    print(f"rotated_mac P=1 C=1 F=1 (a launch that does next to nothing): "
+          f"{median_ms(lambda: k79.rotated_mac_cuda(*tiny, 0)):.4f} ms; "
+          f"torch.sum over {4 * blob.numel() / 1e6:.1f} MB "
+          f"{median_ms(blob.sum):.4f} ms warm, "
+          f"{median_ms(blob.sum, cold=True):.4f} ms cold L2  ({card})",
+          flush=True)
+    del blob
 
     # the sharded paths' new shapes (phase 15), each against its plain
     # version and timed beside its bound: the time-sharded two-level

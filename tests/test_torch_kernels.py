@@ -11,8 +11,9 @@ only on the card (``chip_smoke.py`` holds each against these plain
 versions there); here their wrappers are checked to refuse what they do
 not take, before any build.  The fused head (K1) and the head MAC (K7)
 split their work over the card in ways the plain versions do not, the
-tail transforms (K3/K4) carry their own FFT, and the tail MAC (K2) walks
-its planes flat: models of those schedules in plain PyTorch or numpy,
+tail transforms (K3/K4) carry their own FFT, the tail MAC (K2) walks
+its planes flat, and the rotated MAC (K9) splits its partitions over the
+rows of a CTA: models of those schedules in plain PyTorch or numpy,
 each unit reading only what its CTA reads, are held against the plain
 versions and the contracts here.
 """
@@ -678,6 +679,93 @@ def test_rotated_mac_plain_matches_pallas_at_every_slot(rng):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
         assert snr_db(np.asarray(want), got.numpy()) >= 120.0
 
+
+
+# ---- the schedule of the CUDA K9, modelled in numpy ----------------------------
+
+def _rotated_mac_model(queue, H, slot, aligned=True):
+    """``csrc/spectral_mac.cu``'s K9 thread by thread over flat ``[2, P,
+    N]`` planes, ``N = C F``, by ``k79.ROTATED_MAC_SCHEDULE``: a thread
+    takes ``vec`` consecutive bins where ``N`` is a multiple of ``vec`` and
+    the planes are aligned, else one; a CTA is ``lanes`` threads along the
+    bins times ``split`` rows; row ``g`` sums partitions ``g P // split ..
+    (g + 1) P // split - 1`` in ascending order (chunks of ``ahead`` loaded
+    before their MACs, which leaves the arithmetic as it is), the queue
+    widened to float32, from slot ``(slot - p) mod P``; then one thread an
+    output of the CTA adds the rows' sums in row order.  Returns ``(out,
+    vec)``; bins no thread writes stay NaN."""
+    sch = k79.ROTATED_MAC_SCHEDULE
+    lanes, split = sch["lanes"], sch["split"]
+    _, P, C, F = H.shape
+    N = C * F
+    vec = sch["vec"] if N % sch["vec"] == 0 and aligned else 1
+    q = np.asarray(queue, np.float32).reshape(2, P, N)
+    h = np.asarray(H, np.float32).reshape(2, P, N)
+    per_cta = lanes * vec
+    ctas = -(-N // per_cta)
+    out = np.full((2, N), np.nan, np.float32)
+    # each thread's first bin, [cta, lane]; a live thread's bins are all
+    # live (N is a multiple of vec)
+    first = (np.arange(ctas)[:, None] * per_cta
+             + np.arange(lanes)[None, :] * vec)
+    live = first < N
+    assert np.all(first[live] + vec <= N)
+    bins = (first[..., None] + np.arange(vec)).reshape(-1)      # [thread bins]
+    keep = np.repeat(live.reshape(-1), vec)
+    part = np.zeros((2, split, bins.size), np.float32)
+    for g in range(split):
+        acc = np.zeros((2, int(keep.sum())), np.float32)
+        for p in range(g * P // split, (g + 1) * P // split):
+            k = (slot - p) % P
+            qr, qi = q[0, k, bins[keep]], q[1, k, bins[keep]]
+            hr, hi = h[0, p, bins[keep]], h[1, p, bins[keep]]
+            acc[0] += qr * hr - qi * hi
+            acc[1] += qr * hi + qi * hr
+        part[:, g, keep] = acc
+    # the combine: output j of a CTA is lane j // vec's bin j % vec, i.e.
+    # bin tile + j, which the flat order of ``bins`` already is
+    tot = part[:, 0].copy()
+    for g in range(1, split):
+        tot += part[:, g]
+    written = bins < N
+    assert np.all(np.isnan(out[:, bins[written]]))             # once each
+    out[:, bins[written]] = tot[:, written]
+    return out.reshape(2, C, F), vec
+
+
+@pytest.mark.parametrize("qdt", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("P,C,F,aligned,vec", [
+    (1, 1, 513, True, 1),     # one partition; C F odd: one bin a thread
+    (1, 4, 33, True, 4),      # one partition on the vector path
+    (8, 1, 513, True, 1),     # BASELINE config #1's block
+    (8, 3, 17, True, 1),      # C F odd
+    (8, 4, 17, True, 4),      # C F = 68: the vector path
+    (5, 4, 17, True, 4),      # fewer partitions than rows, uneven rows
+    (64, 1, 513, True, 1),
+    (64, 4, 33, True, 4),
+    (64, 4, 33, False, 1),    # planes off a vector boundary: one bin
+])
+def test_rotated_mac_schedule_matches_contract_and_pallas(rng, qdt, P, C, F,
+                                                          aligned, vec):
+    """The CUDA K9's schedule against ``adjoint.xla_rotated_mac`` and the
+    Pallas kernel in interpret mode, over a float32, bfloat16 or float16
+    queue, at every slot up to P = 8 and at slots 0, 37 and P - 1 at
+    P = 64."""
+    jdt = getattr(jnp, qdt)
+    q, H = _arrays(rng, (2, P, C, F), (2, P, C, F))
+    qj = jnp.asarray(q).astype(jdt)
+    q = np.array(qj.astype(jnp.float32))         # the stored values
+    slots = range(P) if P <= 8 else (0, 37, P - 1)
+    for slot in slots:
+        got, took = _rotated_mac_model(q, H, slot, aligned)
+        assert took == vec and np.all(np.isfinite(got))
+        want = adjoint.xla_rotated_mac(qj, jnp.asarray(H), slot)
+        assert snr_db(np.asarray(want), got) >= 110.0
+        pallas = rotated_mac_pallas(qj, jnp.asarray(H), slot, interpret=True)
+        assert snr_db(np.asarray(pallas), got) >= 110.0
+        plain = k79.rotated_mac_plain(torch.from_numpy(q).to(
+            getattr(torch, qdt)), torch.from_numpy(H), slot).numpy()
+        assert snr_db(plain, got) >= 110.0
 
 def test_plain_k1_and_k2_do_not_count_as_head_mac(rng):
     """K1's and K2's plain versions share the MAC with K7's plain version

@@ -53,6 +53,7 @@ from bbcat_dsp_torch.filters.resample import Resampler
 from bbcat_dsp_torch.loudness import itu1770 as tloud
 from bbcat_dsp_torch.models import binaural as tbinaural
 from bbcat_dsp_torch.models import pipeline as tpipeline
+from bbcat_dsp_torch.utils.precision import sum_in_order
 from conftest import snr_db
 from test_torch_iir import one_torch_thread  # noqa: F401
 
@@ -296,6 +297,109 @@ def test_fractional_reads_of_a_narrow_buffer(rng, tdt, jdt, stream):
     _assert_gap(f"fractional_read{'_stream' * stream}", jdt, ref, jcall(),
                 got)
 
+
+
+# ---- the order of a float32 accumulation -------------------------------------
+#
+# The reference's operation-by-operation semantics fix each rounding but
+# one: the order in which a float32 dot or sum accumulates.  XLA:CPU's
+# eager dot fuses each multiply-add in index order, and its eager sum of a
+# narrow operand adds the widened terms in index order.  The port follows
+# both orders; on a host where its broadcast matrix product (ATen's own
+# loop, no FMA) or ``torch.sum``'s partial sums took another, a float16
+# pipeline's ring and reads departed from JAX's by one step at a few
+# samples.
+
+def _fma_in_order(a: np.ndarray, m: np.ndarray) -> np.ndarray:
+    """``a [K, R, L] @ m [K, L, N]`` as fused multiply-adds in index order
+    from zero, in float32: a product of a float32 and a narrow value is
+    exact in float64, and each step's sum rounds once to float32."""
+    s = np.zeros(a.shape[:-1] + m.shape[-1:], np.float32)
+    for k in range(a.shape[-1]):
+        s = (s + a[..., k, None].astype(np.float64)
+             * m[:, None, k, :]).astype(np.float32)
+    return s
+
+
+def _add_in_order(terms: np.ndarray, axis: int) -> np.ndarray:
+    """The float32 sum of ``terms`` along ``axis``, one term after the
+    other in index order."""
+    terms = np.moveaxis(terms.astype(np.float32), axis, 0)
+    s = terms[0]
+    for t in terms[1:]:
+        s = s + t
+    return s
+
+
+@pytest.mark.parametrize("cd", ["float32", "bfloat16", "float16"])
+def test_the_toeplitz_product_fuses_each_multiply_add_in_index_order(rng, cd):
+    """The modal engine's chunk product (``_cpx_affine_scan_const``'s
+    ``einsum`` at HIGHEST, run eagerly) is the in-order FMA model bit for
+    bit, and so is the port's ``_narrow_bmm``.  Against a float32 signal
+    an order that rounds each product reads other bits on these inputs;
+    a product of two narrow values is exact in float32, so there the two
+    orders meet and only the order of the sum counts."""
+    K, Bb, n, L = 2, 3, 2, 128
+    jdt, tdt = getattr(jnp, cd), getattr(torch, cd)
+    wide = rng.standard_normal((K, Bb, n, L)) * np.exp2(
+        rng.integers(-8, 4, (K, Bb, n, L)))
+    pw = rng.uniform(-1.0, 1.0, (K, L, L)) * np.exp2(
+        rng.integers(-10, 1, (K, L, L)))
+    a = np.array(jnp.asarray(wide, jdt).astype(jnp.float32))
+    # the powers narrow; against a float32 signal, widened (the models')
+    m_dt = jnp.float16 if cd == "float32" else jdt
+    m = np.triu(np.asarray(jnp.asarray(pw, m_dt).astype(jnp.float32)))
+    fused = _fma_in_order(a.reshape(K, Bb * n, L), m).reshape(a.shape)
+    rounded = _add_in_order(a[..., :, None] * m[:, None, None], -2)
+    assert np.any(fused != rounded) == (cd == "float32")
+    want = np.asarray(jnp.asarray(fused).astype(jdt).astype(jnp.float32))
+    with jax.disable_jit():
+        ref = jnp.einsum("kbnl,klm->kbnm", jnp.asarray(a, jdt),
+                         jnp.asarray(m, jdt),
+                         precision=jax.lax.Precision.HIGHEST)
+    np.testing.assert_array_equal(_f64(ref), want)
+    got = tiir._narrow_bmm(torch.from_numpy(a).to(tdt),
+                           torch.from_numpy(m).to(tdt), tdt)
+    assert got.dtype == tdt
+    np.testing.assert_array_equal(_f64(got), want)
+
+
+@pytest.mark.parametrize("axis,terms", [(-1, 14), (0, 6), (0, 16)],
+                         ids=["taps", "poles", "eight-stages"])
+@pytest.mark.parametrize("tdt,jdt", NARROW, ids=IDS)
+def test_a_narrow_sum_adds_in_index_order(rng, tdt, jdt, axis, terms):
+    """``jnp.sum`` of a narrow operand, run eagerly, is the float32 sum in
+    index order rounded once (the 14 taps of a fractional read, the poles
+    of a parallel cascade); so is the port's ``sum_in_order``."""
+    shape = [4096, 3]
+    shape.insert(0 if axis == 0 else 2, terms)
+    v = rng.standard_normal(shape) * np.exp2(rng.integers(-12, 4, shape))
+    p = jnp.asarray(v, jdt)
+    want = np.asarray(jnp.asarray(_add_in_order(
+        np.asarray(p.astype(jnp.float32)), axis)).astype(jdt)
+        .astype(jnp.float32))
+    with jax.disable_jit():
+        np.testing.assert_array_equal(_f64(jnp.sum(p, axis=axis)), want)
+    got = sum_in_order(torch.from_numpy(np.asarray(p.astype(jnp.float32)))
+                       .to(tdt), axis).to(tdt)
+    np.testing.assert_array_equal(_f64(got), want)
+
+
+@pytest.mark.parametrize("tdt,jdt", NARROW, ids=IDS)
+def test_a_narrow_gather_read_is_the_references_at_every_position(rng, tdt,
+                                                                  jdt):
+    """The gather read over a ring whose samples span 16 octaves, at 24576
+    random positions: bit for bit against the reference run operation by
+    operation, where a sum in another order misses a few."""
+    C, L, n = 4, 512, 6144
+    buf = (rng.standard_normal((C, L))
+           * np.exp2(rng.integers(-12, 4, (C, L)))).astype(np.float32)
+    pos = rng.uniform(0.0, L, (C, n)).astype(np.float32)
+    got = tfrac.fractional_read(torch.from_numpy(buf).to(tdt),
+                                torch.from_numpy(pos))
+    with jax.disable_jit():
+        _bits_equal(jfrac.fractional_read(jnp.asarray(buf).astype(jdt),
+                                          jnp.asarray(pos)), got)
 
 @pytest.mark.parametrize("tdt,jdt", NARROW, ids=IDS)
 def test_a_narrow_fractional_delay_line_streams_as_jax(rng, tdt, jdt):
