@@ -8,43 +8,71 @@
 //   y_i    = last B samples of irFFT_n(acc_i)
 // with W_{-1}.. taken from the carried windows and Xh_{-1} from ``prev``;
 // the new carry is the last P windows and the last half spectrum.
+// W_i = Xh_{i-1} + (-1)^k Xh_i is the spectrum of [x_{i-1}, x_i], so block
+// i > 0 takes one real n-point transform of its two blocks of samples, as
+// one complex B-point FFT of the packed pairs held in registers
+// (fft_common.cuh: radix 8, two exchanges at B = 512); block 0 transforms
+// [x_0, 0] and adds ``prev``.  acc_i is an FIR over the block index, so
+// every window depends on the input and the incoming carry alone.
 //
-// Bound: memory.  x and y (4CRB bytes each), H and both carries
-// (8PCF bytes each) and both half spectra must move once: 25.4 MB at
-// C = 64, P = 16, B = 512, R = 48, 7.6 us at 3.35 TB/s, against ~0.4 GFLOP
-// (6 us at the card's float32 rate).  Time is not sequential: acc_i is an
-// FIR over the block index, so every window depends on the input and the
-// incoming carry alone, and all C x R transforms, then all C x R MACs and
-// inverses, are independent.  What costs time is latency (the MAC's loads
-// from L2, the transforms' exchanges), so the design puts all that work on
-// the card at once, in two launches:
+// Two schedules, which bbcat_fused_head picks from the shape and the card
+// (bbcat_fused_head_schedule):
 //
+// The windowed schedule (C = 64, R = 48: the headline render; R = 8: the
+// streaming super-step).  Bound: memory, x and y (4CRB bytes each), H and
+// both carries (8PCF bytes each) and both half spectra once: 25.7 MB, 7.7
+// us at 3.35 TB/s, against 0.38 GFLOP.  What costs time there is latency
+// (the MAC's loads from L2, the transforms' exchanges), so the design puts
+// all of the call's work on the card at once, in two launches:
 // 1. windows_kernel: one transform per (channel, block), 4 to a CTA at
-//    B = 512.  W_i = Xh_{i-1} + (-1)^k Xh_i is the spectrum of [x_{i-1},
-//    x_i], so block i > 0 takes one real n-point transform of its two
-//    blocks of samples, as one complex B-point FFT of the packed pairs held
-//    in registers (fft_common.cuh: radix 8, two exchanges at B = 512).
-//    Block 0 transforms [x_0, 0] and adds ``prev``; one more transform of
-//    [x_{R-1}, 0] gives the half spectrum to carry out.  Windows go to a
-//    scratch [C, P + R, F] (complex; 16.8 MB at the shape above, inside
-//    the 50 MB L2) behind the P carried windows, which the launch's last
-//    CTAs copy in; the carry out is written from the same registers.
+//    B = 512; one more of [x_{R-1}, 0] gives the half spectrum to carry
+//    out.  Windows go to a scratch [C, P + R, F] (complex; 16.8 MB at the
+//    shape above, inside the 50 MB L2) behind the P carried windows, which
+//    the launch's last CTAs copy in; the carry out is written from the
+//    same registers.
 // 2. mac_inverse_kernel: one CTA per (channel, tile of 4 blocks) of B/2
-//    threads, two bins each: the MAC over a register window that slides down the scratch
-//    (window_mac.cuh: P + 3 windows and P filter bins read for 4 outputs,
-//    in p = 0 .. P-1 order), then the 4 inverse transforms side by side,
-//    and the last B samples of each.  The bin that F = B + 1 leaves over would
-//    give one thread a third turn through the MAC, so a warp more takes
-//    the Nyquist bin k = B, a lane per output, and leaves at the barrier
-//    between the MAC and the inverses.
+//    threads, two bins each: the MAC over a register window that slides
+//    down the scratch (window_mac.cuh: P + 3 windows and P filter bins read
+//    for 4 outputs, in p = 0 .. P-1 order), then the 4 inverse transforms
+//    side by side, and the last B samples of each.  The bin that F = B + 1
+//    leaves over would give one thread a third turn through the MAC, so a
+//    warp more takes the Nyquist bin k = B, a lane per output, and leaves
+//    at the barrier between the MAC and the inverses.
+// R = 1 or R < P go the same way: the new carry then keeps P - R of the
+// carried windows, moved up by the copying CTAs.
+//
+// The resident schedule (C = 1024, R = 112: BASELINE config #5's render).
+// There the scratch is 538 MB, 11x the L2, and the windowed grid runs a
+// channel's 28 tiles in 28 waves, each of which reads all of H and the
+// windows of every channel again from HBM.  With 7.8 channels an SM the
+// card is full without spreading a channel across the grid, so one CTA
+// takes one channel and keeps it in shared memory: its filter [P, F]
+// (65.7 KB at P = 16, B = 512), read from HBM once, and a ring of the last
+// P + RT - 1 windows (94.4 KB at RT = 8), which is all that output i's
+// windows i - P + 1 .. i need.  The CTA walks its channel's tiles of RT
+// outputs: the tile's RT transforms into the ring (block i0 + r by threads
+// r T .. r T + T - 1, each transform's barriers its own; blocks past the
+// last are zero), the MAC over the ring (window_mac.cuh, p ascending, each
+// complex product as four fused multiply-adds; the Nyquist warp as
+// above), the RT inverses; the next tile's samples are loaded while the
+// MAC runs.  The carry out is read from the ring at the end and the half
+// spectrum of [x_{R-1}, 0] is one more transform.  HBM then moves x, y, H
+// and the carries once (679.9 MB at config #5, 0.203 ms at 3.35 TB/s) and
+// no scratch, against 14.23 GFLOP of transforms and MAC (0.212 ms at 67
+// TFLOP/s): the arithmetic, float32 on the CUDA cores, bounds it.  The
+// stages' twiddles sit in per-stage tables (a warp reads consecutive
+// entries).  The trade: 201 KB of shared memory leaves one CTA of 17
+// warps an SM, so the transforms' exchanges and barriers are latency a
+// few warps must cover, and 1024 channels over 132 SMs are 7.76 waves;
+// the filter's and carry's copy (cp.async) runs behind the first tile's
+// transforms.
 //
 // Twiddles come from one table computed in double precision on the host.
 // The imaginary parts of the DC and Nyquist bins are zero in every
 // transform of real samples and are dropped on the way into the inverse
 // (fft_common.cuh), as the inverse of a real transform defines them.
-// R = 1 or R < P go the same way: the new carry then keeps P - R of the
-// carried windows, moved up by the copying CTAs.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "fft_common.cuh"
@@ -58,6 +86,7 @@ using bbcat::fft_regs;
 using bbcat::packed_bin;
 using bbcat::PeriodTable;
 using bbcat::real_bin;
+using bbcat::Swizzled;
 using bbcat::window_mac;
 
 constexpr int kWindowThreads = 256;  // windows_kernel: 256 / (B/8) transforms
@@ -262,13 +291,15 @@ mac_inverse_kernel(const float2* __restrict__ win,  // [C, P+R, F]
 }
 
 template <int B>
-int launch(const float* x, const float* xcarry, const float* prev,
-           const float* H, const float2* tw, float* y, float* xcarry_out,
-           float* prev_out, float2* win, int C, int P, int R,
-           cudaStream_t stream) {
+int launch_windowed(const float* x, const float* xcarry, const float* prev,
+                    const float* H, const float2* tw, float* y,
+                    float* xcarry_out, float* prev_out, float2* win, int C,
+                    int P, int R, cudaStream_t stream) {
   constexpr int T = B / 8;
   constexpr int TPC = kWindowThreads / T;
   constexpr int RT = kTileOf<B>;
+  if (win == nullptr || R > RT * 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long items = static_cast<long long>(C) * (R + (R > 1 ? 1 : 0));
   const int nfft = static_cast<int>((items + TPC - 1) / TPC);
   const long long ncopy =
@@ -296,26 +327,360 @@ int launch(const float* x, const float* xcarry, const float* prev,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the resident schedule ---------------------------------------------------
+
+// Output blocks a tile of the resident schedule: eight (B/8 threads a
+// block, B threads in all), four at B = 1024.
+__host__ __device__ constexpr int resident_tile(int B) {
+  return B > 512 ? 4 : 8;
+}
+
+// Its shared memory: the tables [2B] (tw[0 .. B] for the real transforms'
+// bins, then the stages' twiddles), the filter [P, F], the ring
+// [P + RT - 1, F] and the tile's spectra [RT, F], all complex.
+__host__ __device__ constexpr long long resident_smem(int P, int B) {
+  return (2LL * B + (2LL * P + 2 * resident_tile(B) - 1) * (B + 1)) * 8;
+}
+
+// The stages' twiddles in shared memory, in fft_common.cuh's StageTables
+// layout: stage NS's factors exp(-2 pi i q k / (NS R)) at (q - 1) NS + k,
+// so that a warp reads consecutive entries.  (The period table's entries
+// q k 2B / (NS R) fall 4 or 8 to a bank.)
+template <int B>
+struct SharedStageTables {
+  const float2* tw;
+  template <int NS, int R>
+  __device__ __forceinline__ float2 get(int q, int k) const {
+    return tw[bbcat::stage_tables_size<B, 8, NS>() + (q - 1) * NS + k];
+  }
+};
+
+// tw[0 .. B] and the stages' twiddles behind them, from the period table
+// tw [2B] in device memory, by all ``nthreads`` threads of the CTA.
+template <int B>
+__device__ __forceinline__ void load_tables(float2* tws, const float2* tw,
+                                            int nthreads) {
+  constexpr int kStages = bbcat::stage_tables_size<B, 8, B>();
+  for (int o = threadIdx.x; o < B + 1 + kStages; o += nthreads) {
+    if (o <= B) {
+      tws[o] = tw[o];
+      continue;
+    }
+    int ns = 8, at = B + 1;  // stage ns's table starts at ``at``
+    for (;;) {
+      const int R = bbcat::stage_radix(B, 8, ns);
+      if (o < at + (R - 1) * ns) {
+        const int q = 1 + (o - at) / ns;
+        const int k = (o - at) % ns;
+        tws[o] = tw[q * k * (2 * B / (ns * R))];
+        break;
+      }
+      at += (R - 1) * ns;
+      ns *= R;
+    }
+  }
+}
+
+// History of one bin for window_mac from the ring: entry d is the window
+// d before the one in slot ``base``; window m lies in slot m mod S.
+template <int F>
+struct RingAt {
+  const float2* bin;  // the bin in slot 0
+  int base, slots;
+  __device__ __forceinline__ float2 operator()(int d) const {
+    int s = base - d;  // -S < s < 2S: -(RT - 1) <= d < P
+    s += (s < 0) ? slots : 0;
+    s -= (s >= slots) ? slots : 0;
+    return bin[s * F];
+  }
+};
+
+template <int F>
+struct SharedFilterAt {
+  const float2* bin;  // the bin of partition 0
+  __device__ __forceinline__ float2 operator()(int p) const {
+    return bin[p * F];
+  }
+};
+
+// A barrier of one transform's T threads (a multiple of 32 from B = 256
+// on), named 1 + the transform's place in the tile; below that, of all
+// the tile's NT transform threads.
+template <int B, int NT>
+struct TransformSync {
+  int id;
+  __device__ __forceinline__ void operator()() const {
+    if constexpr (B >= 256)
+      asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(B / 8) : "memory");
+    else
+      asm volatile("bar.sync 1, %0;" ::"n"(NT) : "memory");
+  }
+};
+
+// Thread t's pairs z[e] = (w[2e], w[2e+1]), e = t + m T, of the n-window
+// whose first block is block ``first`` of the channel's samples ``xr``:
+// with ``half`` its upper half is zero, and an item that is not ``live``
+// is zero throughout.
+template <int B>
+__device__ __forceinline__ void load_pairs(float2 (&v)[8], const float* xr,
+                                           int first, bool half, bool live,
+                                           int t) {
+  constexpr int T = B / 8;
+  const float2* xp =
+      reinterpret_cast<const float2*>(xr + static_cast<size_t>(first) * B);
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    const int e = t + m * T;
+    v[m] = (!live || (half && e >= B / 2)) ? make_float2(0.0f, 0.0f) : xp[e];
+  }
+}
+
+// The bins of the real n-point transform whose packed transform thread t
+// holds in v, to ``put(k, X[k])``: k = t + m T, thread 0 also k = B.
+template <int B, int NT, typename Put>
+__device__ __forceinline__ void put_bins(const float2 (&v)[8], float2* buf,
+                                         const float2* tws, int t,
+                                         const TransformSync<B, NT>& bar,
+                                         const Put& put) {
+  constexpr int T = B / 8;
+  bar();  // the transform's last exchange's readers are done
+#pragma unroll
+  for (int m = 0; m < 8; ++m) buf[t + m * T] = v[m];
+  bar();
+#pragma unroll
+  for (int m = 0; m <= 8; ++m) {
+    if (m == 8 && t != 0) break;  // thread 0 takes the Nyquist bin
+    const int k = (m == 8) ? B : t + m * T;
+    put(k, real_bin(buf, k, B, tws[k]));
+  }
+}
+
+template <int B>
+__global__ void __launch_bounds__(resident_tile(B) * (B / 8) + 32, 1)
+resident_kernel(const float* __restrict__ x,       // [C, R*B]
+                const float* __restrict__ xcarry,  // [2, P, C, F]
+                const float* __restrict__ prev,    // [2, C, F]
+                const float* __restrict__ H,       // [2, P, C, F]
+                const float2* __restrict__ tw,     // [2B]
+                float* __restrict__ y,             // [C, R*B]
+                float* __restrict__ xcarry_out,    // [2, P, C, F]
+                float* __restrict__ prev_out,      // [2, C, F]
+                int C, int P, int R) {
+  constexpr int F = B + 1;
+  constexpr int T = B / 8;
+  constexpr int RT = resident_tile(B);
+  constexpr int NT = RT * T;    // the transforms' threads, a multiple of 32
+  constexpr int NTH = NT + 32;  // and the Nyquist warp
+  const int S = P + RT - 1;     // ring slots
+  extern __shared__ float2 smem[];
+  float2* tws = smem;                                  // [2B]
+  float2* hs = tws + 2 * B;                            // [P, F]
+  float2* ring = hs + static_cast<size_t>(P) * F;      // [S, F]
+  float2* bufs = ring + static_cast<size_t>(S) * F;    // [RT, F]
+  const int c = blockIdx.x;
+  const size_t part = static_cast<size_t>(C) * F;
+  const size_t plane = static_cast<size_t>(P) * part;
+  const size_t cf = static_cast<size_t>(c) * F;
+  const float* xr = x + static_cast<size_t>(c) * R * B;
+  const int tid = threadIdx.x;
+  const bool fft_thread = tid < NT;
+  const int r = tid / T;  // the thread's block in a tile
+  const int t = tid % T;
+  float2* buf = bufs + r * F;
+  const TransformSync<B, NT> bar{1 + r};
+
+  // The filter and the carried windows 1 .. P-1 (window m in slot m; no
+  // output reads window 0, nor does the new carry) copy in behind the
+  // first tile's transforms: the tile writes slots P .. S-1 and 0 alone.
+  for (int o = tid; o < P * F; o += NTH) {
+    const int p = o / F;
+    const size_t g = p * part + cf + (o - p * F);
+    __pipeline_memcpy_async(&hs[o].x, H + g, 4);
+    __pipeline_memcpy_async(&hs[o].y, H + plane + g, 4);
+    if (p > 0) {
+      __pipeline_memcpy_async(&ring[o].x, xcarry + g, 4);
+      __pipeline_memcpy_async(&ring[o].y, xcarry + plane + g, 4);
+    }
+  }
+  __pipeline_commit();
+  float2 xv[8];  // the next transform's pairs
+  if (fft_thread) load_pairs<B>(xv, xr, r > 0 ? r - 1 : 0, r == 0, r < R, t);
+  load_tables<B>(tws, tw, NTH);
+  __syncthreads();
+
+  for (int i0 = 0; i0 < R; i0 += RT) {
+    if (fft_thread) {
+      // window P + i0 + r, of block j = i0 + r, into its slot
+      const int j = i0 + r;
+      float2 v[8];
+#pragma unroll
+      for (int m = 0; m < 8; ++m) v[m] = xv[m];
+      fft_regs<B>(v, buf, SharedStageTables<B>{tws + B + 1}, t, bar,
+                  Swizzled<8>());
+      // the next tile's pairs, or after the last tile the half window
+      // [x_{R-1}, 0] of the carry out, go in flight behind the MAC
+      if (i0 + RT < R)
+        load_pairs<B>(xv, xr, i0 + RT + r - 1, false, i0 + RT + r < R, t);
+      else
+        load_pairs<B>(xv, xr, R - 1, true, r == 0, t);
+      float2* slot = ring + static_cast<size_t>((P + j) % S) * F;
+      put_bins<B, NT>(v, buf, tws, t, bar, [&](int k, float2 w) {
+        if (j == 0) {
+          const float sg = (k & 1) ? -1.0f : 1.0f;
+          w = make_float2(prev[cf + k] + sg * w.x,
+                          prev[part + cf + k] + sg * w.y);
+        }
+        slot[k] = w;
+      });
+    }
+    if (i0 == 0) __pipeline_wait_prior(0);
+    __syncthreads();
+
+    // the MAC of outputs i0 .. i0 + RT - 1 into bufs
+    const int base = (P + i0) % S;  // the slot of window P + i0
+    if (fft_thread) {
+      for (int k = tid; k < B; k += NT) {
+        float2 acc[RT];
+#pragma unroll
+        for (int q = 0; q < RT; ++q) acc[q] = make_float2(0.0f, 0.0f);
+        window_mac<RT, kAhead, true>(acc, P, RingAt<F>{ring + k, base, S},
+                                     SharedFilterAt<F>{hs + k});
+#pragma unroll
+        for (int q = 0; q < RT; ++q) bufs[q * F + k] = acc[q];
+      }
+    } else if (tid - NT < RT) {
+      // lane q: the Nyquist bin of output i0 + q
+      const int q = tid - NT;
+      float2 acc[1] = {make_float2(0.0f, 0.0f)};
+      window_mac<1, kAhead, true>(
+          acc, P, RingAt<F>{ring + B, base + q - (base + q >= S ? S : 0), S},
+          SharedFilterAt<F>{hs + B});
+      bufs[q * F + B] = acc[0];
+    }
+    __syncthreads();
+
+    if (fft_thread) {
+      // the inverse of output i0 + r: the forward transform of the packed
+      // spectrum with re and im swapped
+      float2 v[8];
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int k = t + m * T;
+        const float2 z = packed_bin(buf[k], buf[B - k], k, tws[k]);
+        v[m] = make_float2(z.y, z.x);
+      }
+      fft_regs<B>(v, buf, SharedStageTables<B>{tws + B + 1}, t, bar,
+                  Swizzled<8>());
+      if (i0 + r < R) {
+        float2* yp = reinterpret_cast<float2*>(
+            y + (static_cast<size_t>(c) * R + i0 + r) * B);
+        const float scale = 1.0f / B;
+#pragma unroll
+        for (int m = 4; m < 8; ++m)
+          yp[t + (m - 4) * T] = make_float2(v[m].y * scale, v[m].x * scale);
+      }
+    }
+  }
+
+  // the half spectrum of the last block for the carry out (block r = 0;
+  // the other blocks' pairs are zero)
+  if (fft_thread) {
+    float2 v[8];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) v[m] = xv[m];
+    fft_regs<B>(v, buf, SharedStageTables<B>{tws + B + 1}, t, bar,
+                Swizzled<8>());
+    put_bins<B, NT>(v, buf, tws, t, bar, [&](int k, float2 w) {
+      if (r == 0) {
+        prev_out[cf + k] = w.x;
+        prev_out[part + cf + k] = w.y;
+      }
+    });
+  }
+  // the new carry, windows R .. P + R - 1, from the ring (the last tile's
+  // windows were written before the last MAC's barrier)
+  for (int q = 0, s = R % S; q < P; ++q, s = (s + 1 == S) ? 0 : s + 1) {
+    const float2* w = ring + static_cast<size_t>(s) * F;
+    for (int k = tid; k < F; k += NTH) {
+      xcarry_out[q * part + cf + k] = w[k].x;
+      xcarry_out[plane + q * part + cf + k] = w[k].y;
+    }
+  }
+}
+
+template <int B>
+int launch_resident(const float* x, const float* xcarry, const float* prev,
+                    const float* H, const float2* tw, float* y,
+                    float* xcarry_out, float* prev_out, int C, int P, int R,
+                    cudaStream_t stream) {
+  const long long smem = resident_smem(P, B);
+  if (smem > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(
+      resident_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  resident_kernel<B><<<C, resident_tile(B) * (B / 8) + 32,
+                       static_cast<size_t>(smem), stream>>>(
+      x, xcarry, prev, H, tw, y, xcarry_out, prev_out, C, P, R);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// Block B a power of two in [32, 1024]; any C, P, R >= 1 (R <= 4 * 65535).
-// tw is the [2B] complex table exp(-2 pi i m / 2B); win a scratch of
-// C (P + R) (B + 1) complex values.
-int bbcat_fused_head(const float* x, const float* xcarry, const float* prev,
-                     const float* H, const void* tw, float* y,
-                     float* xcarry_out, float* prev_out, void* win, int C,
-                     int P, int B, int R, cudaStream_t stream) {
-  if (C < 1 || P < 1 || R < 1 || R > 4 * 65535)
+// The schedule for C channels, P partitions, block B and R blocks on a card
+// of ``sms`` SMs whose blocks may opt into ``smem`` bytes of shared
+// memory: 1, resident, where the channels fill the SMs, R fills a tile and
+// a channel fits in shared memory; else 0, windowed.  On an H100 the
+// resident schedule is the faster there at every shape measured but one
+// channel an SM at R = 1, and the slower below the SM count at any R,
+// however far the windowed one's scratch outgrows the L2 (64 channels at
+// R = 448, 16 at R = 2000); scripts/kernel_times.py --only K1 sweeps both.
+// ops/kernels/fused_head.py mirrors the rule.
+int bbcat_fused_head_schedule(int C, int P, int B, int R, long long smem,
+                              int sms) {
+  return (C >= sms && R >= resident_tile(B) && resident_smem(P, B) <= smem)
+             ? 1
+             : 0;
+}
+
+// The schedule bbcat_fused_head takes on the current device, or minus a
+// CUDA error code.
+int bbcat_fused_head_schedule_here(int C, int P, int B, int R) {
+  int dev = 0, smem = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  return bbcat_fused_head_schedule(C, P, B, R, smem, sms);
+}
+
+// One schedule (0 windowed, 1 resident).  Block B a power of two in
+// [32, 1024]; any C, P, R >= 1 (the windowed one 65535 tiles of R).  tw is
+// the [2B] complex table exp(-2 pi i m / 2B); win the windowed schedule's
+// scratch of C (P + R) (B + 1) complex values (unused by the resident one,
+// which needs resident_smem(P, B) bytes of shared memory).
+int bbcat_fused_head_as(const float* x, const float* xcarry,
+                        const float* prev, const float* H, const void* tw,
+                        float* y, float* xcarry_out, float* prev_out,
+                        void* win, int C, int P, int B, int R, int schedule,
+                        cudaStream_t stream) {
+  if (C < 1 || P < 1 || R < 1 || (schedule != 0 && schedule != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const float2* twp = static_cast<const float2*>(tw);
   float2* winp = static_cast<float2*>(win);
   switch (B) {
-#define BBCAT_HEAD_CASE(N)                                                  \
-  case N:                                                                   \
-    return launch<N>(x, xcarry, prev, H, twp, y, xcarry_out, prev_out, winp, \
-                     C, P, R, stream)
+#define BBCAT_HEAD_CASE(N)                                                   \
+  case N:                                                                    \
+    return schedule == 1                                                     \
+               ? launch_resident<N>(x, xcarry, prev, H, twp, y, xcarry_out,  \
+                                    prev_out, C, P, R, stream)               \
+               : launch_windowed<N>(x, xcarry, prev, H, twp, y, xcarry_out,  \
+                                    prev_out, winp, C, P, R, stream)
     BBCAT_HEAD_CASE(32);
     BBCAT_HEAD_CASE(64);
     BBCAT_HEAD_CASE(128);
@@ -326,6 +691,18 @@ int bbcat_fused_head(const float* x, const float* xcarry, const float* prev,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The schedule bbcat_fused_head_schedule_here picks; ``win`` may be null
+// where that is the resident one.
+int bbcat_fused_head(const float* x, const float* xcarry, const float* prev,
+                     const float* H, const void* tw, float* y,
+                     float* xcarry_out, float* prev_out, void* win, int C,
+                     int P, int B, int R, cudaStream_t stream) {
+  const int schedule = bbcat_fused_head_schedule_here(C, P, B, R);
+  if (schedule < 0) return -schedule;
+  return bbcat_fused_head_as(x, xcarry, prev, H, tw, y, xcarry_out, prev_out,
+                             win, C, P, B, R, schedule, stream);
 }
 
 }  // extern "C"

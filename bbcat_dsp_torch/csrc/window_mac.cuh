@@ -23,8 +23,11 @@
 namespace bbcat {
 
 // x(d): history entry at distance d (callers return zero outside their
-// history); h(p): filter bin of partition p < P.
-template <int RT, int U, typename X, typename Hf>
+// history); h(p): filter bin of partition p < P.  kFma: each complex MAC
+// as four fused multiply-adds into the sum (two roundings a component, the
+// real product's terms added in turn), else as the product's components
+// rounded and then added.
+template <int RT, int U, bool kFma = false, typename X, typename Hf>
 __device__ __forceinline__ void window_mac(float2 (&acc)[RT], int P,
                                            const X& x, const Hf& h) {
   float2 w[RT];  // w[k] = x(p0 - k)
@@ -47,8 +50,15 @@ __device__ __forceinline__ void window_mac(float2 (&acc)[RT], int P,
           // (the unused arm's index is clamped to stay inside its array)
           const float2 v = (k >= u) ? w[k >= u ? k - u : 0]
                                     : e[k >= u ? 0 : u - k - 1];
-          acc[k].x += v.x * g[u].x - v.y * g[u].y;
-          acc[k].y += v.x * g[u].y + v.y * g[u].x;
+          if constexpr (kFma) {
+            acc[k].x = fmaf(v.x, g[u].x, acc[k].x);
+            acc[k].x = fmaf(-v.y, g[u].y, acc[k].x);
+            acc[k].y = fmaf(v.x, g[u].y, acc[k].y);
+            acc[k].y = fmaf(v.y, g[u].x, acc[k].y);
+          } else {
+            acc[k].x += v.x * g[u].x - v.y * g[u].y;
+            acc[k].y += v.x * g[u].y + v.y * g[u].x;
+          }
         }
       }
     }

@@ -57,6 +57,9 @@ _I = ctypes.c_int
 # C entry points: name -> argument types (pointers, ints, then the stream)
 _SIGNATURES = {
     "bbcat_fused_head": [_P] * 9 + [_I] * 4 + [_P],
+    "bbcat_fused_head_as": [_P] * 9 + [_I] * 5 + [_P],
+    "bbcat_fused_head_schedule": [_I] * 4 + [ctypes.c_longlong, _I],
+    "bbcat_fused_head_schedule_here": [_I] * 4,
     "bbcat_rfft_half": [_P] * 3 + [_I] * 2 + [_P],
     "bbcat_irfft_tail": [_P] * 3 + [_I] * 2 + [_P],
     "bbcat_xt_grouped_mac": [_P] * 4 + [_I] * 4 + [_P],

@@ -2,11 +2,15 @@
 
 ``fused_head_cuda`` launches ``csrc/fused_head.cu`` (the port of
 ``fused_head_pallas`` in the JAX package's ``ops/pallas/fused_head.py``), which
-carries its own FFTs: one call is two launches on the stream, every block's
-window transform, then the MAC and the inverses, and counts as one launch
-of the kernel.  ``fused_head_plain`` is its PyTorch version, the unfused
-``_head_spectra -> MAC -> irfft_tail_planes`` composition of
-``adjoint.xla_fused_head``.
+carries its own FFTs, in one of two schedules that the kernel library picks
+from the shape and the card (:func:`fused_head_schedule` mirrors its
+rule): the resident one, a launch with one CTA a channel that keeps the
+channel's filter and its last windows in shared memory, where the channels
+fill the SMs; else the windowed one, two launches on the stream (every
+block's window into a scratch, then the MAC and the inverses).  A call
+counts as one launch of the kernel either way.  ``fused_head_plain`` is its
+PyTorch version, the unfused ``_head_spectra -> MAC -> irfft_tail_planes``
+composition of ``adjoint.xla_fused_head``.
 """
 
 from __future__ import annotations
@@ -22,7 +26,10 @@ from ...convolve.fft import (
 from . import _build
 from .spectral_fir import cplane_mac
 
-__all__ = ["fused_head_plain", "fused_head_cuda"]
+__all__ = ["fused_head_plain", "fused_head_cuda", "fused_head_cuda_as",
+           "fused_head_schedule", "SCHEDULES"]
+
+SCHEDULES = ("windowed", "resident")
 
 
 _TWIDDLES: dict[tuple[int, torch.device], torch.Tensor] = {}
@@ -68,10 +75,30 @@ def fused_head_plain(x: torch.Tensor, xcarry: torch.Tensor,
             prev_xt)
 
 
-def fused_head_cuda(x: torch.Tensor, xcarry: torch.Tensor,
-                    prev: torch.Tensor, H: torch.Tensor, block: int):
-    """Launch the K1 kernel; same contract as :func:`fused_head_plain`.
-    Serves a power-of-two ``block`` from 32 to 1024 and any C, P, R."""
+def resident_tile(B: int) -> int:
+    """Output blocks a tile of the resident schedule."""
+    return 4 if B > 512 else 8
+
+
+def resident_smem_bytes(P: int, B: int) -> int:
+    """Shared memory of the resident schedule's CTA: the twiddle table, the
+    filter, the ring of ``P + tile - 1`` windows and the tile's spectra."""
+    return (2 * B + (2 * P + 2 * resident_tile(B) - 1) * (B + 1)) * 8
+
+
+def fused_head_schedule(C: int, P: int, B: int, R: int, smem_bytes: int,
+                        sms: int) -> str:
+    """The schedule ``bbcat_fused_head_schedule`` picks on a card of
+    ``sms`` SMs whose CTAs may opt into ``smem_bytes`` of shared memory:
+    resident where the channels fill the SMs, R fills its tile and a
+    channel fits in shared memory, else windowed."""
+    resident = (C >= sms and R >= resident_tile(B)
+                and resident_smem_bytes(P, B) <= smem_bytes)
+    return SCHEDULES[resident]
+
+
+def _checked(x, xcarry, prev, H, block):
+    """Check the operands; ``(C, P, R, device)``."""
     B = block
     if not (32 <= B <= 1024 and B & (B - 1) == 0):
         raise ValueError(f"fused_head serves power-of-two blocks 32..1024, "
@@ -90,20 +117,58 @@ def fused_head_cuda(x: torch.Tensor, xcarry: torch.Tensor,
     if x.data_ptr() % 8:
         raise ValueError("x: the kernel reads sample pairs; base pointer "
                          "must be 8-byte aligned")
+    return C, P, T // B, dev
+
+
+def _launch(schedule, x, xcarry, prev, H, block, C, P, R, dev):
+    """One call of the kernel in ``schedule``, or where that is None in the
+    schedule the library picks (``bbcat_fused_head``)."""
+    B, F = block, block + 1
+    lib = _build.library()
+    if schedule is None:
+        # the pick decides whether the call needs the windowed scratch
+        with torch.cuda.device(dev):
+            picked = lib.bbcat_fused_head_schedule_here(C, P, B, R)
+        if picked < 0:
+            _build.check(-picked, "fused_head")
+    windowed = (schedule or SCHEDULES[picked]) == "windowed"
     y = torch.empty_like(x)
     xcarry_out = torch.empty_like(xcarry)
     prev_out = torch.empty_like(prev)
-    R = T // B
-    # every window of the call, behind the carried ones, as complex pairs
-    win = torch.empty((C, P + R, F, 2), dtype=torch.float32, device=dev)
-    tw = _twiddles(B, dev)
-    lib = _build.library()
+    # the windowed schedule's windows, behind the carried ones, as complex
+    # pairs; the resident one keeps them in shared memory
+    win = (torch.empty((C, P + R, F, 2), dtype=torch.float32, device=dev)
+           if windowed else None)
+    args = (x.data_ptr(), xcarry.data_ptr(), prev.data_ptr(), H.data_ptr(),
+            _twiddles(B, dev).data_ptr(), y.data_ptr(), xcarry_out.data_ptr(),
+            prev_out.data_ptr(), None if win is None else win.data_ptr(),
+            C, P, B, R)
     with torch.cuda.device(dev):
-        code = lib.bbcat_fused_head(
-            x.data_ptr(), xcarry.data_ptr(), prev.data_ptr(), H.data_ptr(),
-            tw.data_ptr(), y.data_ptr(), xcarry_out.data_ptr(),
-            prev_out.data_ptr(), win.data_ptr(), C, P, B, R,
-            _build.stream_of(x))
+        if schedule is None:
+            code = lib.bbcat_fused_head(*args, _build.stream_of(x))
+        else:
+            code = lib.bbcat_fused_head_as(*args, SCHEDULES.index(schedule),
+                                           _build.stream_of(x))
     _build.check(code, "fused_head")
     _build.LAUNCHES["fused_head"] += 1
     return y, xcarry_out, prev_out
+
+
+def fused_head_cuda(x: torch.Tensor, xcarry: torch.Tensor,
+                    prev: torch.Tensor, H: torch.Tensor, block: int):
+    """Launch the K1 kernel; same contract as :func:`fused_head_plain`.
+    Serves a power-of-two ``block`` from 32 to 1024 and any C, P, R; the
+    kernel library picks the schedule from the shape and the card."""
+    return _launch(None, x, xcarry, prev, H, block,
+                   *_checked(x, xcarry, prev, H, block))
+
+
+def fused_head_cuda_as(schedule: str, x: torch.Tensor, xcarry: torch.Tensor,
+                       prev: torch.Tensor, H: torch.Tensor, block: int):
+    """The K1 kernel in the named schedule of :data:`SCHEDULES`, whatever
+    the shape: for timing the two apart.  The port's paths call
+    :func:`fused_head_cuda`."""
+    if schedule not in SCHEDULES:
+        raise ValueError(f"schedule {schedule!r} is not one of {SCHEDULES}")
+    return _launch(schedule, x, xcarry, prev, H, block,
+                   *_checked(x, xcarry, prev, H, block))

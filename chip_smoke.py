@@ -219,6 +219,7 @@ lists every kernel with its launches, error, times and bound.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import re
 import statistics
@@ -729,7 +730,12 @@ def main() -> None:
     # K1 fused head: (C, P, B, R); the first is the render's, the second
     # the streaming super-step's; R < P and R >= P both covered, and R = 1,
     # 7, 17 and 48 (with P = 1) across the edges of the kernel's tiles of
-    # 4 output blocks (8 at B = 32, 2 at B = 1024)
+    # 4 output blocks (8 at B = 32, 2 at B = 1024); C = 131 and 132 on
+    # either side of the card's SM count, R = 7 and 8 on either side of
+    # the resident schedule's tile.  Each shape goes through the library's
+    # pick, which must be fused_head_schedule's for this card, and, where
+    # the resident schedule fits its shared memory, through the schedule it
+    # did not pick: both are held against the plain version everywhere.
     def k1_cost(Cc, P, B, R):
         """Bytes x, y, H, both carries and both half spectra; operations
         of 2 CR transforms and the MAC."""
@@ -737,26 +743,59 @@ def main() -> None:
         return (4.0 * (2 * Cc * R * B + 3 * 2 * P * Cc * F + 2 * 2 * Cc * F),
                 2 * fft_flops(Cc * R, B) + 8.0 * P * Cc * R * F)
 
+    k1_lib = _build.library()
+    props = torch.cuda.get_device_properties(dev)
+    k1_card = (getattr(props, "shared_memory_per_block_optin", 232448),
+               props.multi_processor_count)
+    print(f"fused_head's rule on this card: shared memory {k1_card[0]} "
+          f"bytes a CTA, {k1_card[1]} SMs", flush=True)
+    for shape, smem, sms in itertools.product(
+            ((64, 16, 512, 48), (1024, 16, 512, 112), (131, 16, 512, 48),
+             (132, 16, 512, 7), (132, 16, 512, 8), (1024, 20, 512, 112),
+             (1, 9, 1024, 4), (1, 10, 1024, 4), (8, 3, 32, 5)),
+            (0, 201080, 232448), (1, 131, 132, 4096)):
+        want = k1.SCHEDULES.index(k1.fused_head_schedule(*shape, smem, sms))
+        if k1_lib.bbcat_fused_head_schedule(*shape, smem, sms) != want:
+            fail(f"fused_head's schedule at {shape}, shared memory {smem}, "
+                 f"{sms} SMs: the library and fused_head_schedule disagree")
     k1_err, bad, k1_step = None, [], None
     for Cc, P, B, R in ((C, 16, BLOCK, T_RENDER // BLOCK), (C, 16, BLOCK, 8),
                         (1, 1, 32, 1), (5, 6, 32, 4), (8, 6, 32, 16),
                         (5, 1, 512, 3), (8, 16, 512, 24), (3, 4, 1024, 5),
                         (C, 16, BLOCK, 1), (5, 16, 512, 7), (5, 16, 512, 17),
                         (5, 1, 512, 48), (3, 5, 64, 7), (3, 5, 128, 17),
-                        (2, 3, 256, 9), (2, 20, 1024, 11)):
+                        (2, 3, 256, 9), (2, 20, 1024, 11), (131, 16, 512, 48),
+                        (132, 16, 512, 48), (132, 16, 512, 7),
+                        (132, 16, 512, 8), (3, 9, 1024, 6), (7, 3, 64, 1)):
         F = B + 1
         args = (randn(Cc, R * B), randn(2, P, Cc, F), randn(2, Cc, F),
                 randn(2, P, Cc, F))
-        got = k1.fused_head_cuda(*args, B)
+        picked = k1_lib.bbcat_fused_head_schedule_here(Cc, P, B, R)
+        if picked not in (0, 1):
+            fail(f"bbcat_fused_head_schedule_here: CUDA error {-picked}")
+        picked = k1.SCHEDULES[picked]
+        runs = [(f"{picked}, picked", lambda a=args, b=B:
+                 k1.fused_head_cuda(*a, b))]
+        other = k1.SCHEDULES[picked == "windowed"]
+        if other == "windowed" or k1.resident_smem_bytes(P, B) <= 232448:
+            runs.append((other, lambda a=args, b=B, o=other:
+                         k1.fused_head_cuda_as(o, *a, b)))
         want = k1.fused_head_plain(*args, B)
-        torch.cuda.synchronize()
-        snrs = [snr_db(w.cpu().numpy(), g.cpu().numpy())
-                for g, w in zip(got, want)]
-        print(f"fused_head C={Cc} P={P} B={B} R={R}: y/xcarry/prev "
-              + " ".join(f"{s:.1f}" for s in snrs) + " dB", flush=True)
-        if not min(snrs) >= 110.0:
-            bad.append(f"fused_head C={Cc} P={P} B={B} R={R}")
+        for tag, run in runs:
+            got = run()
+            torch.cuda.synchronize()
+            snrs = [snr_db(w.cpu().numpy(), g.cpu().numpy())
+                    for g, w in zip(got, want)]
+            print(f"fused_head C={Cc} P={P} B={B} R={R} ({tag}): y/xcarry/"
+                  "prev " + " ".join(f"{s:.1f}" for s in snrs) + " dB",
+                  flush=True)
+            if not min(snrs) >= 110.0:
+                bad.append(f"fused_head C={Cc} P={P} B={B} R={R} ({tag})")
+        if picked != k1.fused_head_schedule(Cc, P, B, R, *k1_card):
+            fail(f"fused_head C={Cc} P={P} B={B} R={R} took the {picked} "
+                 "schedule, not fused_head_schedule's")
         if k1_err is None:
+            got = k1.fused_head_cuda(*args, B)
             k1_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             bench_args = args
         elif k1_step is None:
@@ -1124,11 +1163,27 @@ def main() -> None:
                    110.0, library=lambda: torch.fft.irfft(
                        spec, n=n)[..., n // 2:].contiguous())
     del xr, pr, spec
-    hold_shape(f"fused_head C={C5} P=16 B={BLOCK} R={T5 // BLOCK}",
-               k1.fused_head_cuda, k1.fused_head_plain,
-               (randn(C5, T5), randn(2, 16, C5, BLOCK + 1),
-                randn(2, C5, BLOCK + 1), randn(2, 16, C5, BLOCK + 1), BLOCK),
+    # K1 at config #5 takes the resident schedule; the windowed one is
+    # timed beside it on the same operands, in turns
+    if k1_lib.bbcat_fused_head_schedule_here(C5, 16, BLOCK, T5 // BLOCK) != 1:
+        fail("fused_head at config #5's shape did not pick the resident "
+             "schedule")
+    k1_args5 = (randn(C5, T5), randn(2, 16, C5, BLOCK + 1),
+                randn(2, C5, BLOCK + 1), randn(2, 16, C5, BLOCK + 1), BLOCK)
+    hold_shape(f"fused_head C={C5} P=16 B={BLOCK} R={T5 // BLOCK} (resident, "
+               "picked)", k1.fused_head_cuda, k1.fused_head_plain, k1_args5,
                k1_cost(C5, 16, BLOCK, T5 // BLOCK), 110.0)
+    k1_turns = {"resident": [], "windowed": []}
+    for sched in ("windowed", "resident", "resident", "windowed"):
+        k1_turns[sched].append(median_ms(
+            lambda: k1.fused_head_cuda_as(sched, *k1_args5)))
+    k1_b5, _ = bound(*k1_cost(C5, 16, BLOCK, T5 // BLOCK))
+    print(f"fused_head C={C5} P=16 B={BLOCK} R={T5 // BLOCK}, in turns: "
+          + ", ".join(f"{k} " + " / ".join(f"{t:.4f}" for t in v) + " ms ("
+                      f"{100 * k1_b5 / min(v):.0f}% of its bound)"
+                      for k, v in k1_turns.items())
+          + f"; bound {k1_b5:.4f} ms  ({card})", flush=True)
+    del k1_args5
     hold_shape(f"xt_grouped_mac P={PT5} C={C5} F={SB + 1} (general kernel), "
                f"slot0 = 5", k2.xt_grouped_mac_cuda, k2.xt_grouped_mac_plain,
                (randn(2, PT5, C5, SB + 1), randn(2, PT5, C5, SB + 1),

@@ -12,8 +12,12 @@ says of the K1, K7, K3 and K4 entries (registers, spills), holds K1, K7,
 K3 and K4 against their plain PyTorch versions at the paths' shapes and at
 small and ragged ones (K3/K4 at every size they serve), and prints
 device-only median times (CUDA events behind a spin on the stream, 20
-launches) of K1 at R = 48, 8 and 1 (C = 64, P = 16, B = 512), of K7 at its
-four path shapes, of K1's two launches apart (torch.profiler), of K3 and
+launches) of K1 at R = 48, 8 and 1 (C = 64, P = 16, B = 512) and at BASELINE
+config #5's shape (C = 1024, R = 112), each in both of its schedules (the
+windowed one's two launches apart, torch.profiler), and over a sweep of C
+and R about the SM count and the L2 (``K1_SWEEP``, the schedules in
+turns, with the library's pick), of
+K7 at its four path shapes, of K3 and
 K4 at their four path shapes (the render's 384 rows and the super-step's
 64 rows of n = 8192, the streamed block's 64 and the uniform render's 3072
 rows of n = 1024) beside ``torch.fft.rfft`` and ``torch.fft.irfft`` with
@@ -49,11 +53,21 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 C, P, B = 64, 16, 512
-K1_SHAPES = ((C, P, B, 48), (C, P, B, 8), (C, P, B, 1), (1, 1, 32, 1),
+K1_SHAPES = ((C, P, B, 48), (C, P, B, 8), (C, P, B, 1), (1024, P, B, 112),
+             (1, 1, 32, 1),
              (5, 6, 32, 4), (8, 6, 32, 16), (5, 1, 512, 3), (8, 16, 512, 24),
              (3, 4, 1024, 5), (3, 5, 64, 7), (3, 5, 128, 17), (2, 3, 256, 9),
              (5, 16, 512, 7), (5, 16, 512, 17), (5, 1, 512, 48),
              (2, 20, 1024, 11))
+# K1 at B = 512, P = 16: (C, R) from 16 to 1024 channels, the windowed
+# schedule's scratch from 4.5 MB to 538 MB; where the two schedules cross
+# set the dispatch's rule
+K1_SWEEP = ((64, 1), (64, 8), (64, 48), (64, 112), (64, 448), (16, 2000),
+            (96, 8), (96, 48), (112, 48), (128, 8), (128, 48), (131, 48),
+            (132, 1), (132, 4), (132, 8), (132, 48), (199, 48), (200, 48),
+            (256, 8), (256, 48), (256, 112), (512, 48), (512, 112),
+            (1024, 1), (1024, 2), (1024, 4), (1024, 8), (1024, 48),
+            (1024, 112))
 # (C, P, R, F, extra history slots)
 K7_SHAPES = ((C, 16, 1, 513, 0), (C, 16, 8, 513, 0), (C, 6, 1, 4097, 0),
              (C, 64, 48, 513, 0), (1, 16, 1, 513, 0), (5, 16, 8, 513, 0),
@@ -84,7 +98,8 @@ def main() -> int:
     args = ap.parse_args()
     only = set(args.only.split(","))
     entries = [name for key, names in (
-        ("K1", ("fused_head", "windows_kernel", "mac_inverse")),
+        ("K1", ("fused_head", "windows_kernel", "mac_inverse",
+                "resident_kernel")),
         ("K7", ("head_mac",)), ("K34", ("rfft_half", "irfft_tail")),
         ("K2", ("xt_mac_unrolled_kernelILi6", "xt_mac_unrolled_kernelILi8",
                 "xt_mac_general")))
@@ -170,17 +185,37 @@ def main() -> int:
             F = Bb + 1
             a = (randn(Cc, R * Bb), randn(2, Pp, Cc, F), randn(2, Cc, F),
                  randn(2, Pp, Cc, F))
-            got = k1.fused_head_cuda(*a, Bb)
-            torch.cuda.synchronize()
-            s = [snr(w, g) for g, w in zip(got, k1.fused_head_plain(*a, Bb))]
-            ok &= min(s) >= 110.0
-            line = (f"{tag} K1 C={Cc} P={Pp} B={Bb} R={R}: "
-                    + " ".join(f"{v:.1f}" for v in s) + " dB")
-            if Cc == C:
-                ms = median_ms(lambda: k1.fused_head_cuda(*a, Bb))
-                line += (f"  {ms:.4f} ms  "
-                         f"{launches_us(lambda: k1.fused_head_cuda(*a, Bb))}")
-            print(line, flush=True)
+            want = k1.fused_head_plain(*a, Bb)
+            for sched in k1.SCHEDULES:
+                if (sched == "resident"
+                        and k1.resident_smem_bytes(Pp, Bb) > 232448):
+                    continue
+                run = lambda: k1.fused_head_cuda_as(sched, *a, Bb)
+                got = run()
+                torch.cuda.synchronize()
+                s = [snr(w, g) for g, w in zip(got, want)]
+                ok &= min(s) >= 110.0
+                line = (f"{tag} K1 C={Cc} P={Pp} B={Bb} R={R} {sched}: "
+                        + " ".join(f"{v:.1f}" for v in s) + " dB")
+                if Cc in (C, 1024):
+                    line += f"  {median_ms(run):.4f} ms  {launches_us(run)}"
+                print(line, flush=True)
+            del want
+        for Cc, R in K1_SWEEP if "K1" in only else ():
+            F = B + 1
+            a = (randn(Cc, R * B), randn(2, P, Cc, F), randn(2, Cc, F),
+                 randn(2, P, Cc, F))
+            turns = {s_: [] for s_ in k1.SCHEDULES}
+            for sched in (*k1.SCHEDULES, *reversed(k1.SCHEDULES)):
+                turns[sched].append(median_ms(
+                    lambda: k1.fused_head_cuda_as(sched, *a, B)))
+            picked = k1.SCHEDULES[
+                _build.library().bbcat_fused_head_schedule_here(Cc, P, B, R)]
+            print(f"{tag} K1 sweep C={Cc} R={R} scratch "
+                  f"{Cc * (P + R) * (B + 1) * 8 / 1e6:.1f} MB: "
+                  + ", ".join(f"{k} " + " / ".join(f"{t:.4f}" for t in v)
+                              for k, v in turns.items())
+                  + f" ms; picks {picked}", flush=True)
         for Cc, Pp, R, F, extra in K7_SHAPES if "K7" in only else ():
             a = (randn(2, Pp + R + extra, Cc, F), randn(2, Pp, Cc, F))
             got = k79.head_mac_cuda(*a, R)

@@ -183,6 +183,60 @@ def _fused_head_model(x, xcarry, prev, H, B):
     return y, planes(carry), planes(prev_out)
 
 
+def _fused_head_resident_model(x, xcarry, prev, H, B):
+    """The resident schedule of ``csrc/fused_head.cu``: per channel (one
+    CTA) a ring of ``P + tile - 1`` window slots, window m in slot m mod S,
+    the carried windows 1 .. P-1 copied in (no output reads window 0);
+    per tile of outputs ``i0 .. i0 + tile - 1`` the tile's windows into the
+    ring (blocks past the last give zero windows), the MAC over the ring
+    alone with the filter (p ascending; the kernel fuses each product into
+    the sum), the inverses' last B samples; then the new carry read from
+    the ring and the half spectrum of ``[x_{R-1}, 0]``."""
+    C, T = x.shape
+    R, P, F = T // B, H.shape[1], B + 1
+    n = 2 * B
+    RT = k1.resident_tile(B)
+    S = P + RT - 1
+    sign = torch.where(torch.arange(F) % 2 == 1, -1.0, 1.0)
+    Hc = torch.complex(H[0], H[1])
+    xc = torch.complex(xcarry[0], xcarry[1])
+    pc = torch.complex(prev[0], prev[1])
+    y = torch.full((C, T), float("nan"))
+    carry = torch.full((P, C, F), float("nan"), dtype=torch.complex64)
+    prev_out = torch.full((C, F), float("nan"), dtype=torch.complex64)
+    for c in range(C):
+        ring = torch.full((S, F), float("nan"), dtype=torch.complex64)
+        for m in range(1, P):
+            ring[m] = xc[m, c]
+        for i0 in range(0, R, RT):
+            for r in range(RT):
+                j = i0 + r
+                if j >= R:
+                    w = torch.zeros(F, dtype=torch.complex64)
+                elif j == 0:
+                    w = torch.fft.rfft(x[c, :B], n=n)
+                    w.imag[[0, -1]] = 0.0
+                    w = pc[c] + sign * w
+                else:
+                    w = torch.fft.rfft(x[c, (j - 1) * B:(j + 1) * B])
+                ring[(P + j) % S] = w
+            base = (P + i0) % S
+            acc = _window_mac_model(RT, 4, P, lambda d: ring[(base - d) % S],
+                                    lambda p: Hc[p, c])
+            for r in range(min(RT, R - i0)):
+                a = acc[r].clone()
+                a.imag[[0, -1]] = 0.0
+                y[c, (i0 + r) * B:(i0 + r + 1) * B] = torch.fft.irfft(
+                    a, n=n)[B:]
+        for q in range(P):
+            carry[q, c] = ring[(R + q) % S]
+        w = torch.fft.rfft(x[c, (R - 1) * B:R * B], n=n)
+        w.imag[[0, -1]] = 0.0
+        prev_out[c] = w
+    planes = lambda z: torch.stack([z.real, z.imag])
+    return y, planes(carry), planes(prev_out)
+
+
 def _head_mac_model(xext, H, R):
     """``head_mac_kernel`` of ``csrc/spectral_mac.cu``: a tile of 1, 8 or 16
     outputs a thread, 4 (single block) or 8 partitions fetched ahead; only
@@ -225,6 +279,74 @@ def test_fused_head_schedule_matches_plain_and_contract(rng, C, P, B, R):
         assert g.shape == p_.shape
         assert snr_db(p_.numpy(), g.numpy()) >= 110.0
         assert snr_db(np.asarray(w), g.numpy()) >= 110.0
+
+
+# the shared memory an H100's CTA may opt into
+# (cudaDevAttrMaxSharedMemoryPerBlockOptin) and its SMs
+H100_SMEM, H100_SMS = 232448, 132
+
+
+@pytest.mark.parametrize("C,P,B,R", [
+    (3, 8, 32, 3),     # R < P: the carry keeps carried windows of the ring
+    (2, 4, 64, 1),     # R = 1: one tile, seven blocks past the last
+    (3, 4, 64, 11),    # R not a multiple of the tile of 8
+    (5, 6, 32, 10),    # odd C (one CTA a channel), B = 32
+    (2, 3, 128, 16),   # R a multiple of the tile, the ring wraps often
+    (2, 1, 64, 9),     # one partition: the ring holds the tile alone
+    (2, 3, 1024, 5),   # B = 1024: the tile of 4
+    (1, 9, 1024, 2),   # the most partitions a channel at B = 1024 holds
+])
+def test_fused_head_resident_schedule_matches_plain_and_contract(
+        rng, C, P, B, R):
+    # on a card of C SMs the library picks the resident schedule where R
+    # fills a tile; the others run it when it is asked for by name
+    want_pick = "resident" if R >= k1.resident_tile(B) else "windowed"
+    assert k1.fused_head_schedule(C, P, B, R, H100_SMEM, C) == want_pick
+    ins = _head_inputs(rng, C, P, B, R)
+    tins = list(map(torch.from_numpy, ins))
+    got = _fused_head_resident_model(*tins, B)
+    plain = k1.fused_head_plain(*tins, B)
+    want = _xla_fused_head(*map(jnp.asarray, ins), B)
+    for g, p_, w in zip(got, plain, want):
+        assert g.shape == p_.shape
+        assert snr_db(p_.numpy(), g.numpy()) >= 110.0
+        assert snr_db(np.asarray(w), g.numpy()) >= 110.0
+
+
+@pytest.mark.parametrize("C,P,B,R,want", [
+    (64, 16, 512, 48, "windowed"),     # the headline render
+    (64, 16, 512, 8, "windowed"),      # the streaming super-step
+    (64, 16, 512, 1, "windowed"),      # process_small_block's head
+    (1024, 16, 512, 112, "resident"),  # config #5's render
+    (256, 16, 512, 112, "resident"),   # its channel shard on 4 ranks
+    (1024, 16, 512, 8, "resident"),    # its streaming super-step
+    (1024, 16, 512, 1, "windowed"),    # its small block: R short of a tile
+    (132, 16, 512, 8, "resident"),     # a channel an SM, a full tile
+    (131, 16, 512, 48, "windowed"),    # an SM idle
+    (64, 16, 512, 448, "windowed"),    # 121.9 MB of scratch, half the SMs
+    (16, 16, 512, 2000, "windowed"),   # 132.4 MB, 16 SMs
+    (1024, 20, 512, 112, "windowed"),  # P = 20 does not fit
+    (1024, 16, 1024, 56, "windowed"),  # nor P = 16 at B = 1024
+    (1024, 9, 1024, 56, "resident"),   # P = 9 does
+])
+def test_fused_head_schedule_rule(C, P, B, R, want):
+    assert k1.fused_head_schedule(C, P, B, R, H100_SMEM, H100_SMS) == want
+
+
+def test_fused_head_schedule_thresholds():
+    C, P, B, R = 100, 16, 512, 48
+    # the channels must fill the SMs
+    assert k1.fused_head_schedule(C, P, B, R, H100_SMEM, C) == "resident"
+    assert k1.fused_head_schedule(C, P, B, R, H100_SMEM, C + 1) == "windowed"
+    # R a tile
+    assert k1.resident_tile(B) == 8 and k1.resident_tile(1024) == 4
+    assert k1.fused_head_schedule(C, P, B, 8, H100_SMEM, C) == "resident"
+    assert k1.fused_head_schedule(C, P, B, 7, H100_SMEM, C) == "windowed"
+    # and the channel must fit in shared memory
+    need = k1.resident_smem_bytes(P, B)
+    assert need == 201080   # tables 8192 + filter 65664 + ring 94392 + tile
+    assert k1.fused_head_schedule(C, P, B, R, need - 1, 1) == "windowed"
+    assert k1.fused_head_schedule(C, P, B, R, need, 1) == "resident"
 
 
 @pytest.mark.parametrize("P,R,C,F,depth", [
@@ -857,6 +979,10 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(rng):
         k1.fused_head_cuda(ins[0].double(), *ins[1:], B)
     with pytest.raises(ValueError, match="contiguous"):
         k1.fused_head_cuda(ins[0].t().contiguous().t(), *ins[1:], B)
+    with pytest.raises(ValueError, match="schedule"):
+        k1.fused_head_cuda_as("tiled", *ins, B)
+    with pytest.raises(ValueError, match="CUDA"):
+        k1.fused_head_cuda_as("resident", *ins, B)     # CPU tensors
     q = torch.zeros(2, 3, C, 9)
     with pytest.raises(ValueError, match="CUDA"):
         k2.xt_grouped_mac_cuda(q, q, q, 0)
