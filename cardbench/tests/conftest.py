@@ -1,0 +1,81 @@
+"""Fixtures of the benchmark's own tests: a copy of the benchmark with a
+tiny configuration added, and the look for a card (made in a fixture,
+never while a module is imported)."""
+
+import json
+import shutil
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[2]
+DATA = Path(__file__).resolve().parent / "data"
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card (skips without one)")
+
+
+@pytest.fixture
+def card():
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: run on the chip")
+    return torch.device("cuda:0")
+
+
+def copy_bench(dest: Path) -> Path:
+    """``BENCHMARK.json`` and ``cardbench/`` copied under ``dest``."""
+    shutil.copy(ROOT / "BENCHMARK.json", dest / "BENCHMARK.json")
+    shutil.copytree(ROOT / "cardbench", dest / "cardbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    return dest
+
+
+def add_tiny(dest: Path) -> dict:
+    """Add the tiny configuration, two tiny mixes, their cells
+    (``tiny_render``, ``tiny_live``) and metrics to the copy at ``dest``,
+    as a later change would: new files and new entries, no file edited;
+    the metrics' readers are those already there (``rtf.tiny`` is read by
+    ``metrics/rtf.py``)."""
+    bench = dest / "cardbench"
+    shutil.copy(DATA / "tiny.json", bench / "configs" / "tiny.json")
+    for t in ("render_tiny", "live_tiny"):
+        shutil.copy(DATA / f"{t}.json", bench / "traffic" / f"{t}.json")
+    raw = json.loads((dest / "BENCHMARK.json").read_text())
+    raw["configs"].append({"name": "tiny", "source": "tests",
+                           "file": "cardbench/configs/tiny.json",
+                           "reduced": [], "why": "tests"})
+    for traffic, cell in (("render_tiny", "tiny_render"),
+                          ("live_tiny", "tiny_live")):
+        raw["workloads"].append({"name": cell, "config": "tiny",
+                                 "traffic": traffic, "chips": 1,
+                                 "why": "tests"})
+    raw["end_to_end"] += [
+        {"name": "rtf.tiny", "unit": "x", "better": "higher", "bound": 0.25,
+         "source": "host_clock", "workloads": ["tiny_render"]},
+        {"name": "block_ms_p99.tiny", "unit": "ms", "better": "lower",
+         "bound": 0.25, "source": "host_clock", "workloads": ["tiny_live"]}]
+    raw["per_layer"] += [
+        {"name": "device.idle_pct.render.tiny", "unit": "%",
+         "better": "lower", "source": "device_trace", "layer": "device",
+         "moves": "rtf.tiny", "workloads": ["tiny_render"]},
+        {"name": "device.busy_ms_per_block.live.tiny", "unit": "ms",
+         "better": "lower", "source": "device_trace", "layer": "device",
+         "moves": "block_ms_p99.tiny", "workloads": ["tiny_live"]}]
+    (dest / "BENCHMARK.json").write_text(json.dumps(raw, indent=1))
+    return raw
+
+
+@pytest.fixture(scope="module")
+def tiny_bench(tmp_path_factory):
+    from cardbench.core import manifest
+
+    dest = copy_bench(tmp_path_factory.mktemp("bench"))
+    add_tiny(dest)
+    return manifest.load(dest, dest / "cardbench")
