@@ -20,7 +20,11 @@ add).  The streaming paths (:meth:`NonUniformConvolver.process_block`,
 exchange (:meth:`~NonUniformConvolver.set_filter`) add the head MAC (K7):
 the head of a crossfade or of one small block is K3, K7, K4, and every
 per-super-step tail is K3, K7, K4.  On CPU tensors the same calls run the
-kernels' plain versions.
+kernels' plain versions.  Under ``torch.profiler`` the layers are spans
+(:func:`~bbcat_dsp_torch.utils.profiling.span`): ``nonuniform.process``,
+``nonuniform.small_block``, ``nonuniform.input``, ``nonuniform.head_step``
+and ``nonuniform.tail_step``; on a card the first and the last also take
+their device extent.
 
 ``dtype`` bfloat16 or float16 stores the tail queue narrow, as the JAX
 package's engine does once a block has run: a super-step reads it widened
@@ -57,6 +61,7 @@ from .block import (
     partition_ir,
 )
 from ..utils.precision import storage_dtype
+from ..utils.profiling import span
 from .fft import half_window_signs, spectral_nbins
 
 __all__ = [
@@ -132,29 +137,31 @@ def _tail_step_xt(state: ConvolverState, H, x, H_old=None):
     """One tail super-step over ``x [C, B2]``: ``(state', y [C, B2])``.
     With ``H_old`` the step fades from the old filter to ``H`` over the
     super-block, ``r[k] = (k + 1) / B2``."""
-    B2 = x.shape[-1]
-    Pt = state.queue.shape[1]
-    xt = ops_hook.rfft_half(x, 2 * B2)                     # [2, C, F]
-    s = half_window_signs(2 * B2, x.device)
-    slot = state.step % Pt
-    # a narrow queue widens here
-    tseq = torch.cat([_roll_slots(state.queue, slot).float(), xt[:, None]],
-                     dim=1)
-    w = _tail_windows_from_xt(tseq, s)                     # W(step-Pt+1..step)
-    # out = sum_p W(step - p) * H[p]: the head MAC's contract over the
-    # windows behind one never-read slot
-    ext = torch.cat([torch.zeros_like(w[:, :1]), w], 1)
+    with span("nonuniform.tail_step", x.device):
+        B2 = x.shape[-1]
+        Pt = state.queue.shape[1]
+        xt = ops_hook.rfft_half(x, 2 * B2)             # [2, C, F]
+        s = half_window_signs(2 * B2, x.device)
+        slot = state.step % Pt
+        # a narrow queue widens here
+        tseq = torch.cat([_roll_slots(state.queue, slot).float(),
+                          xt[:, None]], dim=1)
+        w = _tail_windows_from_xt(tseq, s)             # W(step-Pt+1..step)
+        # out = sum_p W(step - p) * H[p]: the head MAC's contract over the
+        # windows behind one never-read slot
+        ext = torch.cat([torch.zeros_like(w[:, :1]), w], 1)
 
-    def run(Hs):
-        return ops_hook.irfft_tail(ops_hook.head_mac(ext, Hs, 1)[:, 0], 2 * B2)
+        def run(Hs):
+            return ops_hook.irfft_tail(ops_hook.head_mac(ext, Hs, 1)[:, 0],
+                                       2 * B2)
 
-    y = run(H)
-    if H_old is not None:
-        r = _ramp(B2, x.device)
-        y = (1 - r) * run(H_old) + r * y
-    queue = state.queue.clone()
-    queue[:, slot] = xt.to(queue.dtype)      # the one rounding of the step
-    return ConvolverState(queue, xt, state.step + 1), y
+        y = run(H)
+        if H_old is not None:
+            r = _ramp(B2, x.device)
+            y = (1 - r) * run(H_old) + r * y
+        queue = state.queue.clone()
+        queue[:, slot] = xt.to(queue.dtype)  # the one rounding of the step
+        return ConvolverState(queue, xt, state.step + 1), y
 
 
 def _super_step(state: NonUniformState, H_head, H_tail, x, block: int):
@@ -193,23 +200,27 @@ def _super_step_crossfade(state: NonUniformState, H_head, H_head_new, H_tail,
 def _head_step_single(xcarry, prev, H_head, x):
     """One small block of the head, ``x [C, B]`` -> ``(y_head [C, B],
     xcarry', prev')``: K3, then K7, then K4."""
-    B = x.shape[-1]
-    xext, prev = _head_history(xcarry, prev, x, B, 1)
-    y = ops_hook.irfft_tail(ops_hook.head_mac(xext, H_head, 1), 2 * B)[0]
-    return y, xext[:, -H_head.shape[1]:].contiguous(), prev
+    with span("nonuniform.head_step"):
+        B = x.shape[-1]
+        xext, prev = _head_history(xcarry, prev, x, B, 1)
+        y = ops_hook.irfft_tail(ops_hook.head_mac(xext, H_head, 1),
+                                2 * B)[0]
+        return y, xext[:, -H_head.shape[1]:].contiguous(), prev
 
 
 def _head_step_single_crossfade(xcarry, prev, H_old, H_new, x):
     """:func:`_head_step_single` fading from ``H_old`` to ``H_new``."""
-    B = x.shape[-1]
-    xext, prev = _head_history(xcarry, prev, x, B, 1)
+    with span("nonuniform.head_step"):
+        B = x.shape[-1]
+        xext, prev = _head_history(xcarry, prev, x, B, 1)
 
-    def run(H):
-        return ops_hook.irfft_tail(ops_hook.head_mac(xext, H, 1), 2 * B)[0]
+        def run(H):
+            return ops_hook.irfft_tail(ops_hook.head_mac(xext, H, 1),
+                                       2 * B)[0]
 
-    r = _ramp(B, x.device)
-    y = (1 - r) * run(H_old) + r * run(H_new)
-    return y, xext[:, -H_old.shape[1]:].contiguous(), prev
+        r = _ramp(B, x.device)
+        y = (1 - r) * run(H_old) + r * run(H_new)
+        return y, xext[:, -H_old.shape[1]:].contiguous(), prev
 
 
 def _render_group(state: NonUniformState, xg, H_head, H_tail, block: int):
@@ -363,10 +374,12 @@ class NonUniformConvolver:
         self._pending_swap = tuple(new)
 
     def _input(self, x, n: int, what: str) -> torch.Tensor:
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        if x.shape[-1] != n:
-            raise ValueError(f"{what} of {x.shape[-1]} samples, expected {n}")
-        return x.contiguous()
+        with span("nonuniform.input"):
+            x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+            if x.shape[-1] != n:
+                raise ValueError(
+                    f"{what} of {x.shape[-1]} samples, expected {n}")
+            return x.contiguous()
 
     def _float32_only(self, call: str) -> None:
         if self.dtype != torch.float32:
@@ -387,12 +400,13 @@ class NonUniformConvolver:
 
     def process(self, x) -> torch.Tensor:
         """Whole-signal render of ``x [C, T]``."""
-        self._float32_only("process")
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        self.state, y = nonuniform_render(self.state, self.H_head,
-                                          self.H_tail, x.contiguous(),
-                                          self.block)
-        return y
+        with span("nonuniform.process", self.device):
+            self._float32_only("process")
+            x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+            self.state, y = nonuniform_render(self.state, self.H_head,
+                                              self.H_tail, x.contiguous(),
+                                              self.block)
+            return y
 
     def process_block(self, x) -> torch.Tensor:
         """One super-block ``x [C, ratio * block]`` -> its output."""
@@ -417,36 +431,38 @@ class NonUniformConvolver:
         """Low-latency streaming: one small block ``x [C, block]`` in and
         out.  An exchange fades the head in over this block and the tail
         over its next firing."""
-        self._float32_only("process_small_block")
-        B = self.block
-        x = self._input(x, B, "small block")
-        st = self.state
-        if self._pending_swap is not None:
-            Hh, self._tail_swap = self._pending_swap
-            y_head, xcarry, prev = _head_step_single_crossfade(
-                st.xcarry, st.prev, self.H_head, Hh, x)
-            self.H_head = Hh
-            self._pending_swap = None
-        else:
-            y_head, xcarry, prev = _head_step_single(st.xcarry, st.prev,
-                                                     self.H_head, x)
-        off = self._sb_fill * B
-        y = y_head + st.pending[0][:, off:off + B]
-        self._sb_buf[:, off:off + B] = x     # in place: the buffer is ours
-        self._sb_fill += 1
-        tail, pending = st.tail, st.pending
-        if self._sb_fill == self.ratio:
-            if self._tail_swap is not None:
-                tail, out_tail = _tail_step_xt(st.tail, self._tail_swap,
-                                               self._sb_buf, H_old=self.H_tail)
-                self.H_tail, self._tail_swap = self._tail_swap, None
+        with span("nonuniform.small_block"):
+            self._float32_only("process_small_block")
+            B = self.block
+            x = self._input(x, B, "small block")
+            st = self.state
+            if self._pending_swap is not None:
+                Hh, self._tail_swap = self._pending_swap
+                y_head, xcarry, prev = _head_step_single_crossfade(
+                    st.xcarry, st.prev, self.H_head, Hh, x)
+                self.H_head = Hh
+                self._pending_swap = None
             else:
-                tail, out_tail = _tail_step_xt(st.tail, self.H_tail,
-                                               self._sb_buf)
-            pending = torch.stack([st.pending[1], out_tail])
-            self._sb_fill = 0
-        self.state = NonUniformState(xcarry, prev, tail, pending)
-        return y
+                y_head, xcarry, prev = _head_step_single(
+                    st.xcarry, st.prev, self.H_head, x)
+            off = self._sb_fill * B
+            y = y_head + st.pending[0][:, off:off + B]
+            self._sb_buf[:, off:off + B] = x  # in place: the buffer is ours
+            self._sb_fill += 1
+            tail, pending = st.tail, st.pending
+            if self._sb_fill == self.ratio:
+                if self._tail_swap is not None:
+                    tail, out_tail = _tail_step_xt(
+                        st.tail, self._tail_swap, self._sb_buf,
+                        H_old=self.H_tail)
+                    self.H_tail, self._tail_swap = self._tail_swap, None
+                else:
+                    tail, out_tail = _tail_step_xt(st.tail, self.H_tail,
+                                                   self._sb_buf)
+                pending = torch.stack([st.pending[1], out_tail])
+                self._sb_fill = 0
+            self.state = NonUniformState(xcarry, prev, tail, pending)
+            return y
 
     def reset(self) -> None:
         """Restart the stream from silence, the tail queue in the engine's
