@@ -37,7 +37,7 @@ The port serves, on an NVIDIA Hopper card and on the CPU:
   with the overlap-save halo exchange, sharded loudness, the
   communication model, and local worlds of processes.
 
-On the card the convolvers run eight CUDA kernels written for ``sm_90a``
+On the card the convolvers run nine CUDA kernels written for ``sm_90a``
 (``csrc/``); on the CPU the kernels' plain PyTorch versions.  The port
 imports PyTorch and never JAX; the JAX package stays the reference it is
 tested against.

@@ -118,7 +118,8 @@ def _roll_slots(a: torch.Tensor, shift: int, dim: int = 1) -> torch.Tensor:
     """Circular roll: ``out[s] = a[(s + shift) % n]`` along ``dim``.  At
     a shift of 0 the result is ``a`` itself, which may be a kernel's
     output saved for a backward pass: no caller writes into it in place
-    (``_push`` and ``_tail_step_xt`` clone the queue first)."""
+    (``_push`` clones the queue first; the two-level engine copies a queue
+    it did not make before its tail steps write into it)."""
     shift %= a.shape[dim]
     return a if shift == 0 else torch.roll(a, -shift, dims=dim)
 

@@ -17,10 +17,20 @@ On CUDA tensors the render runs through six kernels behind
 forward transform, K2 tail MAC, K4 tail inverse transform, K6 delayed
 add).  The streaming paths (:meth:`NonUniformConvolver.process_block`,
 :meth:`~NonUniformConvolver.process_small_block`) and the click-free IR
-exchange (:meth:`~NonUniformConvolver.set_filter`) add the head MAC (K7):
-the head of a crossfade or of one small block is K3, K7, K4, and every
-per-super-step tail is K3, K7, K4.  On CPU tensors the same calls run the
-kernels' plain versions.  Under ``torch.profiler`` the layers are spans
+exchange (:meth:`~NonUniformConvolver.set_filter`) add the head MAC (K7)
+and the single-step tail MAC (K2s): the head of a crossfade or of one
+small block is K3, K7, K4, and every per-super-step tail is K3, K2s, K4
+(K2s twice when the tail fades).  On CPU tensors the same calls run the
+kernels' plain versions.
+
+The engine owns its tail queue: a streaming tail step retires the
+queue's oldest slot in place, inside K2s's launch.  A queue the engine
+does not hold alone (a render group's, which ``tail.prev`` may view; one
+read from or assigned to the engine's ``state``) is copied once, at the
+next such step.  The functions, and any step that records a derivative,
+leave the state they are given as it was and return a new queue.
+
+Under ``torch.profiler`` the layers are spans
 (:func:`~bbcat_dsp_torch.utils.profiling.span`): ``nonuniform.process``,
 ``nonuniform.small_block``, ``nonuniform.input``, ``nonuniform.head_step``
 and ``nonuniform.tail_step``; on a card the first and the last also take
@@ -46,12 +56,14 @@ in place): it streams, it does not train.
 
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import ops_hook
+from ..ops.autograd import needs_derivative
 from .block import (
     ConvolverState,
     _ramp,
@@ -127,55 +139,50 @@ def _head_history(xcarry, prev, x, B: int, ratio: int):
     return torch.cat([xcarry, Xnew], dim=1), prev_xt
 
 
-def _tail_windows_from_xt(tseq: torch.Tensor, s: torch.Tensor):
-    """``w[i] = tseq[i] + s * tseq[i+1]``: windows from consecutive half
-    spectra ``[2, K+1, C, F]`` -> ``[2, K, C, F]``."""
-    return tseq[:, :-1] + s * tseq[:, 1:]
-
-
-def _tail_step_xt(state: ConvolverState, H, x, H_old=None):
-    """One tail super-step over ``x [C, B2]``: ``(state', y [C, B2])``.
-    With ``H_old`` the step fades from the old filter to ``H`` over the
-    super-block, ``r[k] = (k + 1) / B2``."""
+def _tail_step_xt(state: ConvolverState, H, x, H_old=None,
+                  in_place: bool = False):
+    """One tail super-step over ``x [C, B2]``: ``(state', y [C, B2])``,
+    K3, K2s, K4.  With ``H_old`` the step fades from the old filter to
+    ``H`` over the super-block, ``r[k] = (k + 1) / B2``.  With
+    ``in_place`` the caller owns ``state.queue``: K2s's launch writes the
+    new half spectrum into its oldest slot and ``state'`` holds the same
+    tensor, unless the step records a derivative; otherwise ``state'``
+    holds a new queue."""
     with span("nonuniform.tail_step", x.device):
         B2 = x.shape[-1]
-        Pt = state.queue.shape[1]
+        queue = state.queue
         xt = ops_hook.rfft_half(x, 2 * B2)             # [2, C, F]
-        s = half_window_signs(2 * B2, x.device)
-        slot = state.step % Pt
-        # a narrow queue widens here
-        tseq = torch.cat([_roll_slots(state.queue, slot).float(),
-                          xt[:, None]], dim=1)
-        w = _tail_windows_from_xt(tseq, s)             # W(step-Pt+1..step)
-        # out = sum_p W(step - p) * H[p]: the head MAC's contract over the
-        # windows behind one never-read slot
-        ext = torch.cat([torch.zeros_like(w[:, :1]), w], 1)
-
-        def run(Hs):
-            return ops_hook.irfft_tail(ops_hook.head_mac(ext, Hs, 1)[:, 0],
-                                       2 * B2)
-
-        y = run(H)
+        slot = state.step % queue.shape[1]             # the oldest slot
+        fade = () if H_old is None else (H_old,)
+        retire = in_place and not needs_derivative(queue, xt, H, *fade)
+        if H_old is not None:  # reads the queue before the slot is written
+            y_old = ops_hook.irfft_tail(
+                ops_hook.xt_step_mac(queue, xt, H_old, slot), 2 * B2)
+        y = ops_hook.irfft_tail(
+            ops_hook.xt_step_mac(queue, xt, H, slot, retire), 2 * B2)
         if H_old is not None:
             r = _ramp(B2, x.device)
-            y = (1 - r) * run(H_old) + r * y
-        queue = state.queue.clone()
-        queue[:, slot] = xt.to(queue.dtype)  # the one rounding of the step
+            y = (1 - r) * y_old + r * y
+        if not retire:
+            queue = queue.clone()
+            queue[:, slot] = xt.to(queue.dtype)  # the one rounding
         return ConvolverState(queue, xt, state.step + 1), y
 
 
-def _super_step(state: NonUniformState, H_head, H_tail, x, block: int):
-    """One super-block ``x [C, B2]`` -> ``y [C, B2]``."""
+def _super_step(state: NonUniformState, H_head, H_tail, x, block: int,
+                in_place: bool = False):
+    """One super-block ``x [C, B2]`` -> ``y [C, B2]``; ``in_place`` as
+    :func:`_tail_step_xt` takes it."""
     y_head, xcarry, prev = _head_step(state.xcarry, state.prev, H_head, x,
                                       block)
     y = y_head + state.pending[0]
-    tail, out_tail = _tail_step_xt(state.tail, H_tail, x)
+    tail, out_tail = _tail_step_xt(state.tail, H_tail, x, in_place=in_place)
     pending = torch.stack([state.pending[1], out_tail])
     return NonUniformState(xcarry, prev, tail, pending), y
 
 
 def _super_step_crossfade(state: NonUniformState, H_head, H_head_new, H_tail,
-                          H_tail_new, x, block: int):
+                          H_tail_new, x, block: int, in_place: bool = False):
     """The super-block in which an IR exchange begins: the head fades over
     its first small block, the tail over the whole super-block."""
     B = block
@@ -192,7 +199,8 @@ def _super_step_crossfade(state: NonUniformState, H_head, H_head_new, H_tail,
     y0 = (1 - r) * y_old0 + r * y_new[0]
     y2 = torch.cat([y0[None], y_new[1:]])
     y = y2.transpose(0, 1).reshape(C, SB) + state.pending[0]
-    tail, out_tail = _tail_step_xt(state.tail, H_tail_new, x, H_old=H_tail)
+    tail, out_tail = _tail_step_xt(state.tail, H_tail_new, x, H_old=H_tail,
+                                   in_place=in_place)
     pending = torch.stack([state.pending[1], out_tail])
     return NonUniformState(xext[:, -P:].contiguous(), prev, tail, pending), y
 
@@ -297,6 +305,11 @@ def nonuniform_render_looped(state: NonUniformState, H_head, H_tail, xs,
     return state, torch.stack(tails)
 
 
+def _no_buffer():
+    """The engine's buffer when it holds none: every queue is copied."""
+    return None
+
+
 class NonUniformConvolver:
     """Streaming two-level partitioned convolver with click-free IR
     exchange.
@@ -317,7 +330,13 @@ class NonUniformConvolver:
     leaves it scheduled, as the reference does.  ``dtype`` is the tail
     queue's storage type: float32, or bfloat16 or float16, with which only
     :meth:`process_block` runs (the other two raise ``ValueError``, where
-    the reference's raise ``TypeError``)."""
+    the reference's raise ``TypeError``).
+
+    ``process_block`` and ``process_small_block`` write the tail queue in
+    place at each tail step, while the engine alone holds it.  A state
+    read from :attr:`state` or assigned to it is a value, as the
+    reference's is: the engine copies its queue once, at the next tail
+    step, and never writes the state it handed out or was handed."""
 
     def __init__(self, ir, block: int, ratio: int = 8,
                  nchannels: int | None = None, dtype=torch.float32, *,
@@ -403,10 +422,35 @@ class NonUniformConvolver:
         with span("nonuniform.process", self.device):
             self._float32_only("process")
             x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-            self.state, y = nonuniform_render(self.state, self.H_head,
-                                              self.H_tail, x.contiguous(),
-                                              self.block)
+            self._state, y = nonuniform_render(self._state, self.H_head,
+                                               self.H_tail, x.contiguous(),
+                                               self.block)
             return y
+
+    @property
+    def state(self) -> NonUniformState:
+        """The stream's state.  Read or assigned, it is a value: the
+        engine writes no queue that left it or came in this way."""
+        self._queue = _no_buffer
+        return self._state
+
+    @state.setter
+    def state(self, st: NonUniformState) -> None:
+        self._queue = _no_buffer
+        self._state = st
+
+    def _owned(self, st: NonUniformState) -> NonUniformState:
+        """``st`` with its tail queue in the engine's own buffer, which a
+        streaming tail step writes in place; a queue the engine does not
+        hold alone (a render group's, which ``tail.prev`` may view; one
+        read from or assigned to :attr:`state`) is copied into a fresh
+        buffer first.  The engine holds its buffer weakly: one the state
+        has let go of is freed."""
+        if st.tail.queue is self._queue():
+            return st
+        queue = st.tail.queue.clone(memory_format=torch.contiguous_format)
+        self._queue = weakref.ref(queue)
+        return st._replace(tail=st.tail._replace(queue=queue))
 
     def process_block(self, x) -> torch.Tensor:
         """One super-block ``x [C, ratio * block]`` -> its output."""
@@ -414,17 +458,19 @@ class NonUniformConvolver:
         if self._sb_fill:
             raise ValueError("process_block cannot start mid-way through "
                              "a super-block of small blocks")
+        st = self._owned(self._state)
         if self.dtype != torch.float32:
-            self.state = self._widened(self.state)
+            st = self._widened(st)
         if self._pending_swap is not None:
             Hh, Ht = self._pending_swap
-            self.state, y = _super_step_crossfade(
-                self.state, self.H_head, Hh, self.H_tail, Ht, x, self.block)
+            self._state, y = _super_step_crossfade(
+                st, self.H_head, Hh, self.H_tail, Ht, x, self.block,
+                in_place=True)
             self.H_head, self.H_tail = Hh, Ht
             self._pending_swap = None
         else:
-            self.state, y = _super_step(self.state, self.H_head, self.H_tail,
-                                        x, self.block)
+            self._state, y = _super_step(st, self.H_head, self.H_tail, x,
+                                        self.block, in_place=True)
         return y
 
     def process_small_block(self, x) -> torch.Tensor:
@@ -435,7 +481,7 @@ class NonUniformConvolver:
             self._float32_only("process_small_block")
             B = self.block
             x = self._input(x, B, "small block")
-            st = self.state
+            st = self._state
             if self._pending_swap is not None:
                 Hh, self._tail_swap = self._pending_swap
                 y_head, xcarry, prev = _head_step_single_crossfade(
@@ -451,17 +497,19 @@ class NonUniformConvolver:
             self._sb_fill += 1
             tail, pending = st.tail, st.pending
             if self._sb_fill == self.ratio:
+                tail = self._owned(st).tail
                 if self._tail_swap is not None:
                     tail, out_tail = _tail_step_xt(
-                        st.tail, self._tail_swap, self._sb_buf,
-                        H_old=self.H_tail)
+                        tail, self._tail_swap, self._sb_buf,
+                        H_old=self.H_tail, in_place=True)
                     self.H_tail, self._tail_swap = self._tail_swap, None
                 else:
-                    tail, out_tail = _tail_step_xt(st.tail, self.H_tail,
-                                                   self._sb_buf)
+                    tail, out_tail = _tail_step_xt(tail, self.H_tail,
+                                                   self._sb_buf,
+                                                   in_place=True)
                 pending = torch.stack([st.pending[1], out_tail])
                 self._sb_fill = 0
-            self.state = NonUniformState(xcarry, prev, tail, pending)
+            self._state = NonUniformState(xcarry, prev, tail, pending)
             return y
 
     def reset(self) -> None:
@@ -479,7 +527,7 @@ class NonUniformConvolver:
         F = spectral_nbins(2 * self.block)
         self._sb_buf = torch.zeros((C, self.super_block), device=dev)
         self._sb_fill = 0
-        self.state = NonUniformState(
+        self._state = NonUniformState(
             xcarry=torch.zeros((2, self.head_parts, C, F), device=dev),
             prev=torch.zeros((2, C, F), device=dev),
             tail=convolver_init(C, self.super_block, self.tail_parts,
@@ -488,3 +536,4 @@ class NonUniformConvolver:
                                  device=dev)),
             pending=torch.zeros((2, C, self.super_block), device=dev),
         )
+        self._queue = weakref.ref(self._state.tail.queue)  # its own buffer

@@ -4,8 +4,8 @@ dispatch function of :mod:`~bbcat_dsp_torch.ops_hook`.
 The counterpart of the JAX package's ``ops/pallas/adjoint.py``.  Every
 kernel is linear in each group of its tensor operands: the transforms (K3,
 K4) and the marshalling ops (K5, K6) are linear maps, the spectral MACs
-(K1, K2, K7, K9) are bilinear, linear in the signal's spectra and linear
-in the filter's.  So each Function is exact with no derivative rule of
+(K1, K2, K2s, K7, K9) are bilinear, linear in the signal's spectra and
+linear in the filter's.  So each Function is exact with no derivative rule of
 its own:
 
 * **forward**: the dispatch as it is without a derivative, the kernel on
@@ -53,11 +53,13 @@ from .kernels.spectral_mac import (
     head_mac_plain,
     rotated_mac_cuda,
     rotated_mac_plain,
+    xt_step_mac_cuda,
+    xt_step_mac_plain,
 )
 
 __all__ = ["needs_derivative", "FusedHead", "XtGroupedMac", "RfftHalf",
            "IrfftTail", "GatherSupers", "DelayedAdd", "HeadMac",
-           "RotatedMac"]
+           "RotatedMac", "XtStepMac"]
 
 
 def needs_derivative(*tensors: torch.Tensor) -> bool:
@@ -187,3 +189,6 @@ HeadMac = _function("HeadMac", head_mac_cuda, head_mac_plain, ((0,), (1,)))
 # K9: queue | H
 RotatedMac = _function("RotatedMac", rotated_mac_cuda, rotated_mac_plain,
                        ((0,), (1,)))
+# K2s: (queue, xt) | H; recording a derivative, it never retires a slot
+XtStepMac = _function("XtStepMac", xt_step_mac_cuda, xt_step_mac_plain,
+                      ((0, 1), (2,)))

@@ -45,7 +45,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # instantiations
 KERNELS = ("fused_head", "rfft_half", "xt_grouped_mac", "irfft_tail",
            "gather_supers", "delayed_add", "head_mac", "rotated_mac",
-           "rotated_mac_bf16", "rotated_mac_f16")
+           "rotated_mac_bf16", "rotated_mac_f16", "xt_step_mac")
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS: dict[str, int] = dict.fromkeys(KERNELS, 0)
 ADJOINT_CALLS: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -67,6 +67,7 @@ _SIGNATURES = {
     "bbcat_delayed_add": [_P] * 4 + [_I] * 3 + [_P],
     "bbcat_head_mac": [_P] * 3 + [_I] * 5 + [_P],
     "bbcat_rotated_mac": [_P] * 3 + [_I] * 5 + [_P],
+    "bbcat_xt_step_mac": [_P] * 4 + [_I] * 6 + [_P],
     "bbcat_half_fft_plan": [_I, _P, _P, _I, _P, _P],
     "bbcat_xt_unrolled_parts": [],
     "bbcat_rotated_mac_schedule": [_I],

@@ -1,5 +1,5 @@
-"""Spectral MACs of the streaming engines: head_mac (K7/K8) and
-rotated_mac (K9).
+"""Spectral MACs of the streaming engines: head_mac (K7/K8), rotated_mac
+(K9) and xt_step_mac (K2s).
 
 ``head_mac_cuda`` and ``rotated_mac_cuda`` launch ``csrc/spectral_mac.cu``,
 the port of ``head_mac_tiled_pallas`` and ``head_mac_pallas`` (one kernel at
@@ -15,17 +15,27 @@ plain calls count under its own name (:data:`ROTATED_MAC_NAMES`).  Its
 CUDA kernel splits the partitions over the rows of a CTA and adds the
 rows' sums in a fixed order (:data:`ROTATED_MAC_SCHEDULE`), so its float32
 sums take another order than the plain version's.
+
+``xt_step_mac_cuda`` launches ``csrc/xt_step_mac.cu``, the two-level
+engine's single tail super-step (no TPU kernel: the JAX package forms the
+windows with XLA ops); ``xt_step_mac_plain`` is that composition, the
+queue rolled to its oldest slot, the windows and K7's contract at one
+output.  Like K9 it reads a queue of any of the three types; it counts
+under one name.  Asked to, both retire the oldest slot in place, writing
+the new half spectrum there.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...convolve.fft import half_window_signs
 from . import _build
 from .spectral_fir import cplane_mac
 
 __all__ = ["head_mac_plain", "head_mac_cuda", "rotated_mac_plain",
-           "rotated_mac_cuda", "ROTATED_MAC_NAMES", "ROTATED_MAC_SCHEDULE"]
+           "rotated_mac_cuda", "xt_step_mac_plain", "xt_step_mac_cuda",
+           "ROTATED_MAC_NAMES", "ROTATED_MAC_SCHEDULE"]
 
 # the queue's type -> K9's count name and the kernel's type code
 ROTATED_MAC_NAMES = {torch.float32: "rotated_mac",
@@ -118,4 +128,48 @@ def rotated_mac_cuda(queue: torch.Tensor, H: torch.Tensor,
                                      _build.stream_of(H))
     _build.check(code, name)
     _build.LAUNCHES[name] += 1
+    return out
+
+
+def xt_step_mac_plain(queue: torch.Tensor, xt: torch.Tensor,
+                      H: torch.Tensor, slot: int,
+                      retire: bool = False) -> torch.Tensor:
+    """``t = [queue rolled by slot | xt]`` widened to float32, ``w[k] =
+    t[k] + (-1)^f t[k+1]``, ``out = sum_p w[P-1-p] * H[p]``: ``queue, H
+    [2, P, C, F]``, ``xt [2, C, F]`` -> ``[2, C, F]`` float32.  With
+    ``retire``, then ``queue[:, slot] = xt`` rounded to the queue's type,
+    in place."""
+    _build.count_plain("xt_step_mac")
+    P, F = H.shape[1], H.shape[-1]
+    slot %= P
+    s = half_window_signs(2 * (F - 1), queue.device)
+    tseq = torch.cat([torch.roll(queue, -slot, dims=1).float(),
+                      xt[:, None]], dim=1)
+    w = tseq[:, :-1] + s * tseq[:, 1:]                      # [2, P, C, F]
+    # K7's contract at one output, behind one never-read slot
+    out = cplane_mac(torch.cat([torch.zeros_like(w[:, :1]), w], dim=1),
+                     H, 1)[:, 0]
+    if retire:
+        queue[:, slot] = xt.to(queue.dtype)
+    return out
+
+
+def xt_step_mac_cuda(queue: torch.Tensor, xt: torch.Tensor, H: torch.Tensor,
+                     slot: int, retire: bool = False) -> torch.Tensor:
+    """Launch the K2s kernel; same contract as :func:`xt_step_mac_plain`.
+    The queue may be float32, bfloat16 or float16; xt and H are float32."""
+    P, C, F = _planes_of(H)
+    _build.require(queue, "queue", (2, P, C, F), tuple(ROTATED_MAC_NAMES))
+    _build.require(xt, "xt", (2, C, F))
+    _build.require(H, "H", (2, P, C, F))
+    dev = _build.require_cuda(queue=queue, xt=xt, H=H)
+    out = torch.empty((2, C, F), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.bbcat_xt_step_mac(queue.data_ptr(), xt.data_ptr(),
+                                     H.data_ptr(), out.data_ptr(), P, C, F,
+                                     slot % P, _QTYPE_CODES[queue.dtype],
+                                     int(retire), _build.stream_of(H))
+    _build.check(code, "xt_step_mac")
+    _build.LAUNCHES["xt_step_mac"] += 1
     return out

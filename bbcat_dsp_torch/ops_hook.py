@@ -30,6 +30,7 @@ from .ops.autograd import (
     RfftHalf,
     RotatedMac,
     XtGroupedMac,
+    XtStepMac,
     needs_derivative,
 )
 from .ops.kernels import _build
@@ -38,7 +39,7 @@ from .utils.profiling import span
 
 __all__ = ["fused_head", "rfft_half", "xt_grouped_mac", "irfft_tail",
            "gather_supers", "delayed_add", "head_mac", "rotated_mac",
-           "counts", "reset_counts"]
+           "xt_step_mac", "counts", "reset_counts"]
 
 
 def fused_head(x, xcarry, prev, H, block: int):
@@ -104,6 +105,21 @@ def rotated_mac(queue, H, slot: int):
         if needs_derivative(queue, H):
             return RotatedMac.apply(queue, H, slot)
         return RotatedMac.run(queue, H, slot)
+
+
+def xt_step_mac(queue, xt, H, slot: int, retire: bool = False):
+    """K2s: the tail's single super-step MAC ``[2, C, F]`` over the
+    windows of ``queue`` (rolled to its oldest slot, ``slot``) and the new
+    half spectrum ``xt [2, C, F]``.  With ``retire`` the same launch
+    writes ``xt`` into ``queue[:, slot]``, in place: the caller owns the
+    queue, and the call records no derivative."""
+    with span("ops_hook.xt_step_mac"):
+        if needs_derivative(queue, xt, H):
+            if retire:
+                raise ValueError("xt_step_mac cannot write the queue in "
+                                 "place while it records a derivative")
+            return XtStepMac.apply(queue, xt, H, slot)
+        return XtStepMac.run(queue, xt, H, slot, retire)
 
 
 def counts() -> dict:

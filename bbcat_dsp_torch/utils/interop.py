@@ -198,10 +198,12 @@ def eq_delay_state_from_jax(state, *, device) -> EQDelayState:
 
 
 def to_numpy(tree):
-    """The port's state with every tensor as a numpy array, tuples and
-    named tuples rebuilt around them; integers stay integers."""
+    """The port's state with every tensor as a numpy array of its own,
+    tuples and named tuples rebuilt around them; integers stay integers.
+    A CPU tensor is copied: an engine may later write its buffer."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
+        t = tree.detach()
+        return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
     if isinstance(tree, tuple):
         leaves = [to_numpy(t) for t in tree]
         return type(tree)(*leaves) if hasattr(tree, "_fields") else tuple(leaves)

@@ -56,7 +56,8 @@ SPANS = ("nonuniform.process", "nonuniform.small_block", "nonuniform.input",
          "ops_hook.fused_head", "ops_hook.rfft_half",
          "ops_hook.xt_grouped_mac", "ops_hook.irfft_tail",
          "ops_hook.gather_supers", "ops_hook.delayed_add",
-         "ops_hook.head_mac", "ops_hook.rotated_mac")
+         "ops_hook.head_mac", "ops_hook.rotated_mac",
+         "ops_hook.xt_step_mac")
 _ZERO = {"calls": 0, "host_s": 0.0, "self_s": 0.0, "device_s": 0.0,
          "pending": 0}
 _TALLIES = {name: dict(_ZERO) for name in SPANS}

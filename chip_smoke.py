@@ -19,7 +19,9 @@ Phases, each of which exits nonzero on failure:
    vector and its one-bin path, and timed warm and with a cold L2 beside
    the kernel as first ported (``K9_AS_PORTED_SRC``), a launch that does
    next to nothing and ``torch.sum`` over the same bytes; K3, K4, K7
-   and K9 at BASELINE config #1's shapes, C = 1), with
+   and K9 at BASELINE config #1's shapes, C = 1; K2s at config #5's tail,
+   P = 14, C = 1024, F = 4097, over each queue type at three slots, its
+   queue after the slot write equal to the plain version's), with
    times (CUDA events, median of 20 launches) at the main paths' shapes
    (four each for K3, K4 and K7), each beside its bound: the
    larger of the bytes the function must move over 3.35 TB/s and its
@@ -246,6 +248,8 @@ F32_FLOPS_PER_S = 67e12                  # float32 outside the tensor cores
 RENDER_KERNELS = {"fused_head", "rfft_half", "xt_grouped_mac", "irfft_tail",
                   "gather_supers", "delayed_add"}
 STREAM_KERNELS = RENDER_KERNELS | {"head_mac"}
+# the two-level engine's super-blocks and renders: the tail steps in K2s
+SUPER_STEP_KERNELS = RENDER_KERNELS | {"xt_step_mac"}
 BLOCK_KERNELS = {"rfft_half", "rotated_mac", "irfft_tail", "head_mac"}
 
 
@@ -1011,6 +1015,52 @@ def main() -> None:
            tpu_kernel("head_mac_tiled_pallas"), k7_err, ms, plain_ms,
            *k7_cost(C, P_UNIFORM, T_RENDER // BLOCK, BLOCK + 1))
 
+    # K2s single-step tail MAC: config #5's tail (P = 14, C = 1024, F =
+    # 4097), a float32, a bfloat16 and a float16 queue, at three slots,
+    # with and without the slot write: the output at >= 110 dB against the
+    # plain version on the same operands, the queue untouched without the
+    # write and equal to the plain version's after it.  Timed in float32
+    # with the write, as a tail firing runs it
+    def k2s_cost(P, Cc, F):
+        """The queue and H read, xt read, the slot and the output
+        written; one complex MAC and one complex window sum a partition
+        and bin."""
+        return (16.0 * P + 24.0) * Cc * F, 12.0 * P * Cc * F
+
+    P5, C5, F5 = 14, 1024, 4097
+    bad, k2s_err = [], 0.0
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        H5, xt5 = randn(2, P5, C5, F5), randn(2, C5, F5)
+        q5 = randn(2, P5, C5, F5).to(dt)
+        for slot in (0, 5, P5 - 1):
+            kept = q5.clone()
+            want = k79.xt_step_mac_plain(kept, xt5, H5, slot)
+            got = k79.xt_step_mac_cuda(q5, xt5, H5, slot)
+            s = snr_db(want.cpu().numpy(), got.cpu().numpy())
+            untouched = bool(torch.equal(q5, kept))
+            k79.xt_step_mac_plain(kept, xt5, H5, slot, True)
+            got = k79.xt_step_mac_cuda(q5, xt5, H5, slot, True)
+            s = min(s, snr_db(want.cpu().numpy(), got.cpu().numpy()))
+            written = bool(torch.equal(q5, kept))
+            tag = f"xt_step_mac P={P5} C={C5} F={F5} {dt} slot={slot}"
+            print(f"{tag}: {s:.1f} dB, queue untouched without the write "
+                  f"{untouched}, equal after it {written}", flush=True)
+            if not (s >= 110.0 and untouched and written):
+                bad.append(tag)
+            if dt == torch.float32:
+                k2s_err = max(k2s_err, float((got - want).abs().max()))
+            del kept, want, got
+        if dt == torch.float32:
+            k2s_ms = (median_ms(lambda: k79.xt_step_mac_cuda(
+                q5, xt5, H5, 5, True)), median_ms(lambda: k79.xt_step_mac_plain(
+                    q5, xt5, H5, 5, True)))
+        del H5, xt5, q5
+    if bad:
+        fail(f"xt_step_mac against its plain version: {bad}")
+    record("xt_step_mac", "bbcat_dsp_torch/csrc/xt_step_mac.cu",
+           "none: the JAX package's per-super-step tail forms its windows "
+           "with XLA ops", k2s_err, *k2s_ms, *k2s_cost(P5, C5, F5))
+
     # K9 rotated MAC: (P, C, F, slot); the BlockConvolver step's shape at
     # three cursors, BASELINE config #1's block (C F = 513: one bin a
     # thread), small odd shapes, small ones on the vector path (C F a
@@ -1362,7 +1412,8 @@ def main() -> None:
         ys.append(stream.process_block(xd[:, j * SB:(j + 1) * SB]))
     ys.append(stream.process(xd[:, 10 * SB:]))
     torch.cuda.synchronize()
-    check_path("streaming two-level", ops_hook.counts(), STREAM_KERNELS)
+    check_path("streaming two-level", ops_hook.counts(),
+               STREAM_KERNELS | SUPER_STEP_KERNELS)
     y = torch.cat(ys, dim=-1).cpu().numpy()
     if y.shape != x.shape or not np.all(np.isfinite(y)):
         fail(f"streaming output shape {y.shape} or non-finite values")
@@ -2449,7 +2500,8 @@ def main() -> None:
             lambda: NonUniformConvolver(irs, block=BLOCK, ratio=RATIO,
                                         device=dev),
             lambda e: [e.process_block(sb12(j)) for j in range(5)],
-            nu_second, STREAM_KERNELS, put=put_two_level)
+            nu_second, STREAM_KERNELS | SUPER_STEP_KERNELS,
+            put=put_two_level)
 
     def blk12(k):
         return x12[:, k * BLOCK:(k + 1) * BLOCK]
@@ -2551,7 +2603,7 @@ def main() -> None:
                      for xb in io["conv_x"]])
     torch.cuda.synchronize()
     check_path("resumed from the JAX-written file", ops_hook.counts(),
-               {"fused_head", "rfft_half", "head_mac", "irfft_tail"})
+               {"fused_head", "rfft_half", "xt_step_mac", "irfft_tail"})
     s_conv = snr_db(io["conv_y"], y.cpu().numpy())
     y = torch.stack([fx_bank.process(torch.from_numpy(xb).to(dev))
                      for xb in io["bank_x"]])
@@ -4098,7 +4150,7 @@ def main() -> None:
                 lambda: NonUniformConvolver(a17["h1"], BLOCK, RATIO,
                                             dtype=dt, device=dev),
                 lambda e: sbs(e, 0, 8), lambda e: sbs(e, 8, 16),
-                {"fused_head", "rfft_half", "head_mac", "irfft_tail"})
+                {"fused_head", "rfft_half", "xt_step_mac", "irfft_tail"})
         resumed(f"phase 17 (e) BinauralRenderer dtype={name}",
                 lambda: BinauralRenderer(b17["h1"], block=BLOCK,
                                          eq_stages=[b17["eq"]], fs=FS,

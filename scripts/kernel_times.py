@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Time the port's fused head (K1), head MAC (K7), tail transforms (K3,
-K4) and tail MAC (K2) on one NVIDIA GPU.
+K4), tail MAC (K2) and single-step tail MAC (K2s) on one NVIDIA GPU.
 
     python3 scripts/kernel_times.py                  # from the repo root
     python3 scripts/kernel_times.py --define K1_TILE=8 --define K1_TILE=4
     python3 scripts/kernel_times.py --only K34       # K3 and K4 alone
     python3 scripts/kernel_times.py --only K2        # the tail MAC alone
+    python3 scripts/kernel_times.py --only K2s       # the single step alone
 
 Builds the CUDA kernels of ``bbcat_dsp_torch/csrc``, prints what ``ptxas``
 says of the K1, K7, K3 and K4 entries (registers, spills), holds K1, K7,
@@ -27,9 +28,15 @@ every queue cursor, at every partition count 1 .. 8 (the unrolled kernel)
 and above (the general one) and at odd ``C F``, large shapes before
 small ones, each
 launch into memory that was filled with NaN just before; it is timed at
-the render's shape beside its bound.  It
+the render's shape beside its bound.  K2s is held against its plain
+version on the card (output, and the queue after its slot write) at every
+queue type, at config #5's tail (P = 14, C = 1024, F = 4097), at a
+vector and at a one-element shape, and timed at config #5's tail with
+the slot write, at each queue type, beside its bound and beside the
+composition the tail step ran before it (roll, two cats, the window sums,
+K7 at R = 1, a copy of the queue, the slot write).  It
 runs on any tree that has the wrappers, so an older checkout gives the
-earlier kernels' times.
+earlier kernels' times (K2s only where the tree has it).
 
 Each ``--define NAME=VALUE`` (comma-separated for several at once) builds
 the library once more with ``-DNAME=VALUE`` and times it in turn, then the
@@ -82,6 +89,8 @@ K34_SHAPES = (((6, C), 8192), ((C,), 8192), ((C,), 1024), ((48, C), 1024),
               ((1061,), 512), ((13,), 64), ((7,), 128), ((1059,), 128),
               *(((r,), 2 * h) for h in (8192, 32, 4096, 64, 2048, 128, 1024,
                                         256, 512) for r in (1, 5, 67)))
+# (P, C, F): config #5's tail, timed; a vector and a one-element shape
+K2S_SHAPES = ((14, 1024, 4097), (6, 64, 4097), (14, 3, 33))
 # (P, C, F), each at every queue cursor; the first is the render's, timed
 K2_SHAPES = ((6, C, 4097), (6, 7, 4097), (2, 8, 4097), (1, 5, 4097),
              (12, 8, 4097), *((p, 8, 257) for p in range(1, 9)),
@@ -93,8 +102,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--define", action="append", default=[],
                     help="NAME=VALUE[,NAME=VALUE...]: one more build")
-    ap.add_argument("--only", default="K1,K7,K34,K2",
-                    help="which of K1, K7, K34, K2 each build runs")
+    ap.add_argument("--only", default="K1,K7,K34,K2,K2s",
+                    help="which of K1, K7, K34, K2, K2s each build runs")
     args = ap.parse_args()
     only = set(args.only.split(","))
     entries = [name for key, names in (
@@ -102,7 +111,7 @@ def main() -> int:
                 "resident_kernel")),
         ("K7", ("head_mac",)), ("K34", ("rfft_half", "irfft_tail")),
         ("K2", ("xt_mac_unrolled_kernelILi6", "xt_mac_unrolled_kernelILi8",
-                "xt_mac_general")))
+                "xt_mac_general")), ("K2s", ("xt_step_mac",)))
         if key in only for name in names]
 
     import torch
@@ -274,6 +283,48 @@ def main() -> int:
                          f" at 3; bound {nbytes / 3.35e9:.4f} ms "
                          f"({nbytes / 1e6:.1f} MB over 3.35 TB/s)")
             print(line, flush=True)
+        for Pp, Cc, F in (K2S_SHAPES if "K2s" in only
+                          and hasattr(k79, "xt_step_mac_cuda") else ()):
+            for dt in (torch.float32, torch.bfloat16, torch.float16):
+                q = randn(2, Pp, Cc, F).to(dt)
+                xt, H = randn(2, Cc, F), randn(2, Pp, Cc, F)
+                slot = Pp // 2
+                want_q = q.clone()
+                want = k79.xt_step_mac_plain(want_q, xt, H, slot, True)
+                got = k79.xt_step_mac_cuda(q, xt, H, slot, True)
+                torch.cuda.synchronize()
+                s = snr(want, got)
+                same = bool(torch.equal(q, want_q))
+                ok &= s >= 110.0 and same
+                line = (f"{tag} K2s P={Pp} C={Cc} F={F} {dt}, slot {slot}: "
+                        f"{s:.1f} dB, queue after "
+                        f"{'equal' if same else 'DIFFERENT'}")
+                if Cc == 1024:
+                    # the queue read and its slot written; H, xt, out
+                    nbytes = (2 * (Pp + 1) * Cc * F * q.element_size()
+                              + 4 * (2 * Pp + 4) * Cc * F)
+                    if dt == torch.float32:
+                        sg = torch.ones(F, device=dev)
+                        sg[1::2] = -1.0
+
+                        def before():
+                            t = torch.cat([torch.roll(q, -slot, dims=1),
+                                           xt[:, None]], dim=1)
+                            w = t[:, :-1] + sg * t[:, 1:]
+                            ext = torch.cat([torch.zeros_like(w[:, :1]), w],
+                                            1)
+                            k79.head_mac_cuda(ext, H, 1)
+                            q2 = q.clone()
+                            q2[:, slot] = xt
+
+                        line += f"; before K2s {median_ms(before):.4f} ms"
+                    line += (f"; {median_ms(lambda: k79.xt_step_mac_cuda(q, xt, H, slot, True)):.4f}"
+                             f" ms with the slot write, bound "
+                             f"{nbytes / 3.35e9:.4f} ms ({nbytes / 1e6:.1f} "
+                             f"MB over 3.35 TB/s)  "
+                             f"{launches_us(lambda: k79.xt_step_mac_cuda(q, xt, H, slot, True))}")
+                print(line, flush=True)
+                del q, xt, H, want_q
         return ok
 
     base = list(_build.NVCC_FLAGS)

@@ -60,6 +60,18 @@ def _xla_contract(fn, *statics):
     return jax.jit(lambda *a: fn(*a, *statics))
 
 
+def _xla_xt_step_mac(queue, xt, H, slot):
+    """K2s's contract, which the JAX package forms with XLA ops in its
+    per-super-step tail: the head MAC at one output over the windows of
+    the queue rolled to its oldest slot and the new half spectrum."""
+    F = H.shape[-1]
+    s = jnp.where(jnp.arange(F) % 2, -1.0, 1.0).astype(queue.dtype)
+    t = jnp.concatenate([jnp.roll(queue, -slot, axis=1), xt[:, None]], 1)
+    w = t[:, :-1] + s * t[:, 1:]
+    ext = jnp.concatenate([jnp.zeros_like(w[:, :1]), w], 1)
+    return adjoint.xla_head_mac(ext, H, 1)[:, 0]
+
+
 # kernel -> (port dispatch, JAX contract, operand shapes, statics); C = 4
 # channels, odd partition counts, every static off zero
 def _cases():
@@ -88,13 +100,16 @@ def _cases():
                      [(2, P + R, C, F), (2, P, C, F)], (R,)),
         "rotated_mac": (ops_hook.rotated_mac, adjoint.xla_rotated_mac,
                         [(2, P, C, F), (2, P, C, F)], (2,)),
+        "xt_step_mac": (ops_hook.xt_step_mac, _xla_xt_step_mac,
+                        [(2, P, C, F), (2, C, F), (2, P, C, F)], (1,)),
     }
 
 
 KERNELS = list(_cases())
 # the bilinear kernels' operand groups: signal first, filter second
 GROUPS = {"fused_head": ((0, 1, 2), (3,)), "xt_grouped_mac": ((0, 1), (2,)),
-          "head_mac": ((0,), (1,)), "rotated_mac": ((0,), (1,))}
+          "head_mac": ((0,), (1,)), "rotated_mac": ((0,), (1,)),
+          "xt_step_mac": ((0, 1), (2,))}
 
 
 def _tuple(out):

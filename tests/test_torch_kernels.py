@@ -932,6 +932,20 @@ def test_mac_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         k79.rotated_mac_cuda(H, H.transpose(2, 3).contiguous().transpose(2, 3),
                              0)
+    xt = torch.zeros(2, C, F)
+    with pytest.raises(ValueError, match="CUDA"):
+        k79.xt_step_mac_cuda(H, xt, H, 1, True)         # CPU tensors
+    with pytest.raises(ValueError, match="shape"):
+        k79.xt_step_mac_cuda(V, xt, H, 0)
+    with pytest.raises(ValueError, match="shape"):
+        k79.xt_step_mac_cuda(H, H, H, 0)                # xt is one step
+    with pytest.raises(ValueError, match="dtype"):
+        k79.xt_step_mac_cuda(H.double(), xt, H, 0)      # float32/16, bf16
+    with pytest.raises(ValueError, match="dtype"):
+        k79.xt_step_mac_cuda(H, xt.half(), H, 0)        # xt is float32
+    with pytest.raises(ValueError, match="contiguous"):
+        k79.xt_step_mac_cuda(H.transpose(2, 3).contiguous().transpose(2, 3),
+                             xt, H, 0)
 
 
 # ---- dispatch and the kernel wrappers' checks ---------------------------------
@@ -951,6 +965,7 @@ def test_dispatch_takes_plain_versions_on_cpu_and_counts(rng):
     ops_hook.rotated_mac(q, q, 1)
     ops_hook.rotated_mac(q.bfloat16(), q, 1)
     ops_hook.rotated_mac(q.half(), q, 1)
+    ops_hook.xt_step_mac(q, q[:, 0], q, 1)
     counts = ops_hook.counts()
     assert counts["plain"] == dict.fromkeys(counts["plain"], 1)
     assert counts["launches"] == dict.fromkeys(counts["launches"], 0)

@@ -123,8 +123,8 @@ def test_stream_matches_golden(rng):
 
 
 def test_render_goes_through_the_six_dispatchers(rng):
-    """A group render calls each dispatcher once; a super-step, the head
-    and the tail's two transforms."""
+    """A group render calls each dispatcher once; a super-step, the head,
+    the tail's two transforms and its single-step MAC."""
     conv = NonUniformConvolver(rng.standard_normal((2, 600)), block=32,
                                ratio=4, device="cpu")
     ops_hook.reset_counts()
@@ -139,7 +139,7 @@ def test_render_goes_through_the_six_dispatchers(rng):
     conv.process(np.zeros((2, conv.super_block)))
     plain = ops_hook.counts()["plain"]
     assert {k for k, v in plain.items() if v} == {
-        "fused_head", "rfft_half", "head_mac", "irfft_tail"}
+        "fused_head", "rfft_half", "xt_step_mac", "irfft_tail"}
 
 
 def test_looped_render_matches_repeated(rng):

@@ -139,6 +139,56 @@ def test_mixed_mode_matches_jax(rng):
     assert tconv.state.tail.step == int(jconv.state.tail.step)
 
 
+def test_owned_tail_queue_stream_matches_jax(rng):
+    """A render group, small blocks over three tail firings, super-blocks,
+    then an exchange that fades in at the next firing of small blocks:
+    output and state against the JAX engine after each.  The queue the
+    render left, and each one read from ``state`` to hold it against the
+    JAX engine's, is copied once, at the next firing, and never written;
+    between two reads the engine writes its own queue in place."""
+    C = 3
+    jconv, tconv = _pair(_irs(rng, C))
+    Pt = tconv.tail_parts
+
+    def x(T):
+        return rng.standard_normal((C, T)).astype(np.float32)
+
+    def own_queue_kept(fn):
+        """``fn()``'s firings after the first all write one tensor."""
+        queues = []
+        step = tconv.process_small_block
+
+        def spy(xb):
+            y = step(xb)
+            if tconv._sb_fill == 0:
+                queues.append(tconv._state.tail.queue)
+            return y
+
+        tconv.process_small_block = spy
+        try:
+            fn()
+        finally:
+            del tconv.process_small_block
+        return len(queues) > 1 and all(q is queues[0] for q in queues)
+
+    _both(jconv, tconv, "process", x(Pt * SB), Pt * SB)
+    handed = tconv.state.tail.queue
+    kept = handed.clone()
+    assert own_queue_kept(lambda: _both(jconv, tconv, "process_small_block",
+                                        x(3 * SB), B))
+    assert tconv._state.tail.queue is not handed
+    assert torch.equal(handed, kept)
+    handed = tconv.state.tail.queue
+    kept = handed.clone()
+    _both(jconv, tconv, "process_block", x(2 * SB), SB)
+    assert torch.equal(handed, kept)
+    assert own_queue_kept(lambda: _both(
+        jconv, tconv, "process_small_block", x(2 * SB), B,
+        {2: [((_irs(rng, C),), {})]}))
+    assert tconv._tail_swap is None
+    assert tconv.state.tail.step == int(jconv.state.tail.step)
+
+
 def test_process_leaves_a_scheduled_exchange_for_later(rng):
     """``process`` renders with the running filters and keeps a scheduled
     exchange for the next streaming block, as the JAX engine does."""
@@ -220,7 +270,7 @@ def test_state_stays_contiguous_through_exchanges(rng):
 
 def test_small_block_path_goes_through_head_mac(rng):
     """A small block is K3, K7, K4; the block that completes a super-block
-    adds the tail's K3, K7, K4.  No render kernel runs."""
+    adds the tail's K3, K2s, K4.  No render kernel runs."""
     C = 2
     conv = NonUniformConvolver(_irs(rng, C), block=B, ratio=RATIO,
                                device="cpu")
@@ -232,7 +282,7 @@ def test_small_block_path_goes_through_head_mac(rng):
     for i in range(1, RATIO):
         conv.process_small_block(x[:, i * B:(i + 1) * B])
     assert {k: v for k, v in ops_hook.counts()["plain"].items() if v} == {
-        "rfft_half": RATIO + 1, "head_mac": RATIO + 1,
+        "rfft_half": RATIO + 1, "head_mac": RATIO, "xt_step_mac": 1,
         "irfft_tail": RATIO + 1}
 
 

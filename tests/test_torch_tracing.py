@@ -29,7 +29,8 @@ SB = B * RATIO
 PT = 3                                   # tail partitions
 N = 2 * SB + PT * SB                     # head 2 * ratio blocks, then the tail
 KERNELS = ("fused_head", "rfft_half", "xt_grouped_mac", "irfft_tail",
-           "gather_supers", "delayed_add", "head_mac", "rotated_mac")
+           "gather_supers", "delayed_add", "head_mac", "rotated_mac",
+           "xt_step_mac")
 ENGINE_CALLS = {"nonuniform.small_block": RATIO, "nonuniform.input": RATIO,
                 "nonuniform.head_step": RATIO, "nonuniform.tail_step": 1,
                 "nonuniform.process": 1}
