@@ -3,6 +3,18 @@ the plain reference, and the result line's fields.
 
 :func:`run_cell` is ``run.py``'s body without its look for a card, so the
 tests can drive a whole run on the CPU at a small size.
+
+The configuration's reference module (``reference/<engine>.py``) makes
+its filters and says how many past samples an output depends on
+(``memory``).  A configuration may give ``inputs`` and ``outputs`` where
+they differ; both default to ``channels``.  A traffic mix may give
+``exchange: {"every_blocks": k, "sets": n}`` where its driver exchanges
+(``EXCHANGES``) and the reference states an exchange law
+(``EXCHANGE_LAW``), else the run is refused before anything is built:
+set-up makes ``n`` filter sets from the tags ``ir``, ``ir1``, ... of the
+seed, and the driver exchanges to the next at every ``k``-th block.  Each
+compared output comes with the sets active before and after it, and the
+reference computes it from the filters and the history alone.
 """
 
 from __future__ import annotations
@@ -13,7 +25,7 @@ from dataclasses import dataclass, field
 
 import torch
 
-from cardbench.core import seeds, signals, verdict
+from cardbench.core import seeds, verdict
 from cardbench.core.trace import Tracer
 
 __all__ = ["Run", "Context", "run_cell"]
@@ -28,6 +40,16 @@ class Run:
     seed: int
     device: torch.device
     engine: object = None
+    memory: int = 0
+    filters: list = field(default_factory=list)
+
+    @property
+    def inputs(self) -> int:
+        return int(self.cfg.get("inputs", self.cfg.get("channels")))
+
+    @property
+    def outputs(self) -> int:
+        return int(self.cfg.get("outputs", self.cfg.get("channels")))
 
     def sync(self) -> None:
         if self.device.type == "cuda":
@@ -66,6 +88,22 @@ def _checks(cfg, worst, failed, compared, plain) -> verdict.Checks:
     return checks
 
 
+def _filter_sets(tr: dict, reference, drivers) -> int:
+    """How many filter sets the mix needs: 1, or its exchange's ``sets``
+    where the driver and the reference both take an exchange."""
+    ex = tr.get("exchange")
+    if ex is None:
+        return 1
+    if not getattr(drivers, "EXCHANGES", False):
+        raise ValueError(f"{drivers.__name__} exchanges no filters")
+    if not getattr(reference, "EXCHANGE_LAW", False):
+        raise ValueError(f"{reference.__name__} states no exchange law")
+    if int(ex["every_blocks"]) < 1 or int(ex["sets"]) < 2:
+        raise ValueError(f"exchange {ex}: every_blocks >= 1 and two filter "
+                         f"sets or more")
+    return int(ex["sets"])
+
+
 def run_cell(bench, name: str, seed: int, seconds: float, trace: bool, *,
              device, t_process: float, log=print, control: bool = False):
     """Run cell ``name`` once; returns ``(result, checks, control)``: the
@@ -81,6 +119,7 @@ def run_cell(bench, name: str, seed: int, seconds: float, trace: bool, *,
     drivers = bench.driver(tr["driver"])
     wanted = bench.per_layer_for(name) if trace else bench.end_to_end_for(name)
     readers = {m["name"]: bench.reader(m["name"]) for m in wanted}
+    sets = _filter_sets(tr, reference, drivers)
 
     # ---- set-up: inputs from the seed, the engine, warm-up ----------------
     stamps = [("process start to the cell's files", t_process,
@@ -90,12 +129,13 @@ def run_cell(bench, name: str, seed: int, seconds: float, trace: bool, *,
         run.sync()
         stamps.append((what, stamps[-1][2], time.perf_counter()))
 
-    run = Run(cfg, tr, seed, device)
-    ir = signals.room_irs(cfg["channels"], cfg["ir_taps"], cfg["ir_rt60_s"],
-                          cfg["sample_rate"],
-                          seeds.generator(seed, "ir", device), device)
+    run = Run(cfg, tr, seed, device, memory=reference.memory(cfg))
+    run.filters = [reference.filters(cfg, seeds.generator(seed, tag, device),
+                                     device)
+                   for tag in ["ir"] + [f"ir{k}" for k in range(1, sets)]]
     done("the IRs on the card")
-    run.engine = bench.engine(cfg["engine"]).Engine(cfg, ir, device)
+    run.engine = bench.engine(cfg["engine"]).Engine(cfg, run.filters[0],
+                                                    device)
     done("the engine (its constructor)")
     drv = drivers.Driver(run)
     drv.setup()
@@ -124,15 +164,17 @@ def run_cell(bench, name: str, seed: int, seconds: float, trace: bool, *,
     # ---- the comparison, once the program's state is freed ------------------
     run.engine = None
     kept = drv.kept
-    N = cfg["ir_taps"]
+    M = run.memory
     worst, worst_ctl, failed_ctl = 0.0, 0.0, 0
-    for start, y in kept:
+    for start, y, (before, after) in kept:
         n = y.shape[-1]
-        hist = drv.stream(start - (N - 1), N - 1 + n)
-        ref = reference.outputs(hist, ir, n)
+        hist = drv.stream(start - M, M + n)
+        law = {} if before == after else {"before": run.filters[before]}
+        ref = reference.outputs(hist, run.filters[after], n, **law)
         worst = max(worst, verdict.rel_err(y, ref))
         if control:
-            ctl = reference.outputs(hist, ir, n, precision="tf32")
+            ctl = reference.outputs(hist, run.filters[after], n,
+                                    precision="tf32", **law)
             worst_ctl = max(worst_ctl, verdict.rel_err(ctl, ref))
             failed_ctl += not bool(torch.isfinite(ctl).all())
             del ctl

@@ -15,6 +15,9 @@ finite (checking every output would add a launch to every call).
 
 With a tracer, the traced slice opens once the reservoir is full and its
 calls are not drawn, so none of the harness's copies falls inside it.
+
+It exchanges no filters (``EXCHANGES``): a render call has no exchange
+block to fade over.
 """
 
 from __future__ import annotations
@@ -28,8 +31,9 @@ import torch
 
 from cardbench.core import seeds, signals
 
-__all__ = ["Driver"]
+__all__ = ["EXCHANGES", "Driver"]
 
+EXCHANGES = False
 _NULL = contextlib.nullcontext()
 
 
@@ -39,7 +43,6 @@ class Driver:
     def __init__(self, run):
         self.run = run
         self.G = run.engine.group_samples
-        self.C = run.cfg["channels"]
         self.k = 0                    # global call index, warm-up included
         self.failed = 0
         self.kept = []
@@ -54,11 +57,11 @@ class Driver:
 
     def setup(self) -> None:
         run, tr = self.run, self.run.traffic
-        chunk = 4 * self.C * self.G
+        chunk = 4 * run.inputs * self.G
         n = max(int(tr["pool_min_chunks"]),
                 math.ceil(tr["pool_min_bytes"] / chunk))
         self.pool = signals.noise(
-            (n, self.C, self.G), run.cfg["signal_rms"],
+            (n, run.inputs, self.G), run.cfg["signal_rms"],
             seeds.generator(run.seed, "pool", run.device), run.device)
         self.order = list(range(n))
         seeds.host_rng(run.seed, "order").shuffle(self.order)
@@ -66,7 +69,7 @@ class Driver:
         for _ in range(int(tr["warmup_calls"])):
             y = self._call()          # two outputs alive, as in the window
         del y
-        self.slots = torch.empty((int(tr["keep"]), self.C, self.G),
+        self.slots = torch.empty((int(tr["keep"]), run.outputs, self.G),
                                  device=run.device)
         run.sync()
 
@@ -120,25 +123,26 @@ class Driver:
             drawn += 1
         run.sync()
         wall = time.perf_counter() - t0
-        self.kept = [(k * self.G, self.slots[j])
+        self.kept = [(k * self.G, self.slots[j], (0, 0))
                      for j, k in enumerate(slot_call) if k is not None]
         if last is not None and last[0] not in slot_call:
-            self.kept.append((last[0] * self.G, last[1]))
+            self.kept.append((last[0] * self.G, last[1], (0, 0)))
         # a call whose output is not finite failed; the sample is read
         self.failed += sum(not bool(torch.isfinite(y).all())
-                           for _, y in self.kept)
+                           for _, y, _ in self.kept)
         return {"attempted": seen, "failed": self.failed,
                 "audio_s": seen * self.G / run.cfg["sample_rate"],
                 "wall_s": wall}
 
     def stream(self, start: int, length: int) -> torch.Tensor:
-        """Samples ``[start, start + length)`` of the input stream, ``[C,
-        length]``, zeros before the stream's first sample."""
+        """Samples ``[start, start + length)`` of the input stream,
+        ``[inputs, length]``, zeros before the stream's first sample."""
         parts, t = [], start
         while t < start + length:
             k, off = divmod(t, self.G)
             n = min(self.G - off, start + length - t)
-            parts.append(torch.zeros((self.C, n), device=self.run.device)
+            parts.append(torch.zeros((self.run.inputs, n),
+                                     device=self.run.device)
                          if k < 0 else self._x(k)[:, off:off + n])
             t += n
         return torch.cat(parts, dim=1)

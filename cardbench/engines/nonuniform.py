@@ -18,12 +18,12 @@ __all__ = ["Engine"]
 
 
 class Engine:
-    def __init__(self, cfg: dict, ir: torch.Tensor, device):
-        self.conv = NonUniformConvolver(ir.cpu().numpy(), cfg["block"],
+    def __init__(self, cfg: dict, filters: torch.Tensor, device):
+        self.conv = NonUniformConvolver(filters.cpu().numpy(), cfg["block"],
                                         cfg["ratio"], device=device)
         self.channels = self.conv.nchannels
         self.block = self.conv.block
-        self.ratio = self.conv.ratio
+        self.cycle_blocks = self.conv.ratio   # one tail firing a cycle
         self.head_parts = self.conv.head_parts
         self.tail_parts = self.conv.tail_parts
         self.group_samples = self.tail_parts * self.conv.super_block

@@ -28,7 +28,8 @@ a temporary file in ``TMPDIR``, deleted once read.  Nothing is written to
 
 Adding to the benchmark is adding files and entries in ``BENCHMARK.json``:
 a configuration is ``configs/<name>.json`` (its ``engine`` names
-``engines/<engine>.py`` and ``reference/<engine>.py``); a traffic mix is
+``engines/<engine>.py`` and ``reference/<engine>.py``, whose contracts
+their packages' docstrings give); a traffic mix is
 ``traffic/<name>.json`` (its ``driver`` names ``drivers/<driver>.py``);
 a metric is read by ``metrics/<name>.py`` with ``read(ctx)``, or by the
 file of its name's longest dotted prefix (``rtf.<config>`` by

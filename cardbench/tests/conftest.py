@@ -72,10 +72,49 @@ def add_tiny(dest: Path) -> dict:
     return raw
 
 
+def add_matrix_tiny(dest: Path) -> dict:
+    """Add a tiny matrix configuration (4 inputs mixed to 2 outputs, 4
+    partitions), a live mix that exchanges its filters every 8 blocks, the
+    cell ``mtiny_live`` and its metrics to the copy at ``dest``: new files
+    only, the engine adapter and the plain reference among them."""
+    bench = dest / "cardbench"
+    shutil.copy(DATA / "mtiny.json", bench / "configs" / "mtiny.json")
+    shutil.copy(DATA / "live_exchange_tiny.json",
+                bench / "traffic" / "live_exchange_tiny.json")
+    shutil.copy(DATA / "engine_matrix.py", bench / "engines" / "matrix.py")
+    shutil.copy(DATA / "reference_matrix.py",
+                bench / "reference" / "matrix.py")
+    raw = json.loads((dest / "BENCHMARK.json").read_text())
+    raw["configs"].append({"name": "mtiny", "source": "tests",
+                           "file": "cardbench/configs/mtiny.json",
+                           "reduced": [], "why": "tests"})
+    raw["workloads"].append({"name": "mtiny_live", "config": "mtiny",
+                             "traffic": "live_exchange_tiny", "chips": 1,
+                             "why": "tests"})
+    raw["end_to_end"].append(
+        {"name": "block_ms_p99.mtiny", "unit": "ms", "better": "lower",
+         "bound": 0.25, "source": "host_clock", "workloads": ["mtiny_live"]})
+    raw["per_layer"].append(
+        {"name": "device.busy_ms_per_block.live.mtiny", "unit": "ms",
+         "better": "lower", "source": "device_trace", "layer": "device",
+         "moves": "block_ms_p99.mtiny", "workloads": ["mtiny_live"]})
+    (dest / "BENCHMARK.json").write_text(json.dumps(raw, indent=1))
+    return raw
+
+
 @pytest.fixture(scope="module")
 def tiny_bench(tmp_path_factory):
     from cardbench.core import manifest
 
     dest = copy_bench(tmp_path_factory.mktemp("bench"))
     add_tiny(dest)
+    return manifest.load(dest, dest / "cardbench")
+
+
+@pytest.fixture(scope="module")
+def matrix_bench(tmp_path_factory):
+    from cardbench.core import manifest
+
+    dest = copy_bench(tmp_path_factory.mktemp("bench"))
+    add_matrix_tiny(dest)
     return manifest.load(dest, dest / "cardbench")

@@ -172,8 +172,8 @@ def test_the_render_slice_opens_on_a_full_reservoir_and_holds_no_sample(
     start, stop = spy.at
     assert start - base == tr["keep"]
     assert stop - start >= 20 and record["attempted"] > stop - base
-    sampled = [s // drv.G for s, _ in drv.kept]
+    sampled = [s // drv.G for s, _, _ in drv.kept]
     assert len(sampled) == tr["keep"] + 1
     assert not [k for k in sampled if start <= k < stop]
-    for s, y in drv.kept:
-        assert torch.equal(y, 2 * drv.stream(s, drv.G))
+    for s, y, sets in drv.kept:
+        assert torch.equal(y, 2 * drv.stream(s, drv.G)) and sets == (0, 0)

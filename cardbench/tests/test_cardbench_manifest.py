@@ -83,7 +83,9 @@ def test_every_file_of_a_cell_is_found_by_name(cell):
     tr = bench.traffic(w["traffic"])
     assert hasattr(bench.driver(tr["driver"]), "Driver")
     assert hasattr(bench.engine(cfg["engine"]), "Engine")
-    assert hasattr(bench.reference(cfg["engine"]), "outputs")
+    reference = bench.reference(cfg["engine"])
+    for fn in ("filters", "memory", "outputs"):
+        assert callable(getattr(reference, fn))
     for m in bench.end_to_end_for(cell) + bench.per_layer_for(cell):
         assert callable(bench.reader(m["name"]).read)
     entry = bench.configs[w["config"]]

@@ -123,7 +123,7 @@ def test_p99_is_numpys_linear_percentile_over_every_block(cfg):
 
 class _Stalling:
     """A stand-in engine whose block 5 of the window stalls 40 ms."""
-    block, ratio = 512, 8
+    block, cycle_blocks = 512, 8
 
     def __init__(self):
         self.n = 0
