@@ -47,25 +47,37 @@
 // windows of every channel again from HBM.  With 7.8 channels an SM the
 // card is full without spreading a channel across the grid, so one CTA
 // takes one channel and keeps it in shared memory: its filter [P, F]
-// (65.7 KB at P = 16, B = 512), read from HBM once, and a ring of the last
-// P + RT - 1 windows (94.4 KB at RT = 8), which is all that output i's
-// windows i - P + 1 .. i need.  The CTA walks its channel's tiles of RT
-// outputs: the tile's RT transforms into the ring (block i0 + r by threads
-// r T .. r T + T - 1, each transform's barriers its own; blocks past the
-// last are zero), the MAC over the ring (window_mac.cuh, p ascending, each
-// complex product as four fused multiply-adds; the Nyquist warp as
-// above), the RT inverses; the next tile's samples are loaded while the
-// MAC runs.  The carry out is read from the ring at the end and the half
-// spectrum of [x_{R-1}, 0] is one more transform.  HBM then moves x, y, H
-// and the carries once (679.9 MB at config #5, 0.203 ms at 3.35 TB/s) and
-// no scratch, against 14.23 GFLOP of transforms and MAC (0.212 ms at 67
-// TFLOP/s): the arithmetic, float32 on the CUDA cores, bounds it.  The
-// stages' twiddles sit in per-stage tables (a warp reads consecutive
-// entries).  The trade: 201 KB of shared memory leaves one CTA of 17
-// warps an SM, so the transforms' exchanges and barriers are latency a
-// few warps must cover, and 1024 channels over 132 SMs are 7.76 waves;
-// the filter's and carry's copy (cp.async) runs behind the first tile's
-// transforms.
+// (65.7 KB at P = 16, B = 512), read from HBM once, and a ring of windows.
+// HBM then moves x, y, H and the carries once (679.9 MB at config #5,
+// 0.203 ms at 3.35 TB/s) and no scratch, against 14.23 GFLOP of
+// transforms and MAC (0.212 ms at 67 TFLOP/s): the arithmetic, float32 on
+// the CUDA cores, bounds it.  What keeps K1 from that bound is latency:
+// 230 KB of shared memory leave one CTA an SM, each transform waits at four
+// to six barriers of its two warps (B = 512: two exchanges, the bins' pass),
+// and done in turn (a tile's transforms, its MAC, its inverses, each phase
+// behind a barrier of the whole CTA) the FMA-bound MAC and the
+// barrier-bound transforms never run at once: 17 warps, 0.98 ms.
+//
+// So the CTA is a pipeline of two warp-specialised roles.  The consumer
+// (RT = 8 transforms of B/8 threads and the Nyquist warp, 17 warps) runs
+// tile n's MAC over the ring (window_mac.cuh, p ascending, each complex
+// product as four fused multiply-adds; the Nyquist warp as above) into
+// the tile's spectra, then its RT inverses.  The producer (RT/2
+// transforms, 8 warps) meanwhile puts tile n + 1's windows into the ring,
+// two turns of four, each transform exchanging through the slot it fills
+// (the bins' pass reads and writes each pair k, B - k in place), so it
+// needs no buffer of its own.  The ring holds P + 2 RT - 1 windows (127.2
+// KB): the ones tile n's MAC reads and tile n + 1's.  One barrier of the
+// whole CTA a tile (the hand-off) is all the two share; inside each role
+// a transform's barriers are its own (named 1 .. 12) and the consumer's
+// MAC and inverses meet at one barrier of its 544 threads.  The consumer
+// transforms tile 0 while the producer starts on tile 1, and the producer
+// transforms the half spectrum of [x_{R-1}, 0] for the carry out beside
+// the last tile's MAC.  25 warps an SM; 230 KB of shared memory with the
+// stages' twiddles (the bins' twiddles come through the read-only cache).
+// At config #5 the consumer alone takes 0.70 ms and the producer alone
+// 0.42; the two together 0.82 (26% of the bound), where the three phases
+// in turn took 0.98.
 //
 // Twiddles come from one table computed in double precision on the host.
 // The imaginary parts of the DC and Nyquist bins are zero in every
@@ -329,17 +341,44 @@ int launch_windowed(const float* x, const float* xcarry, const float* prev,
 
 // ---- the resident schedule ---------------------------------------------------
 
-// Output blocks a tile of the resident schedule: eight (B/8 threads a
-// block, B threads in all), four at B = 1024.
+// Output blocks a tile of the resident schedule: eight, two at B = 1024.
 __host__ __device__ constexpr int resident_tile(int B) {
-  return B > 512 ? 4 : 8;
+  return B > 512 ? 2 : 8;
 }
 
-// Its shared memory: the tables [2B] (tw[0 .. B] for the real transforms'
-// bins, then the stages' twiddles), the filter [P, F], the ring
-// [P + RT - 1, F] and the tile's spectra [RT, F], all complex.
+// Transforms the producer runs side by side: half the tile's (two turns a
+// tile), and at least a warp's threads (B/8 a transform).
+__host__ __device__ constexpr int resident_producers(int B) {
+  const int want = resident_tile(B) / 2;
+  const int warp = (32 + B / 8 - 1) / (B / 8);
+  const int n = want > warp ? want : warp;
+  return n < resident_tile(B) ? n : resident_tile(B);
+}
+
+// The CTA: the consumer (the tile's transforms and a warp for the Nyquist
+// bins) and the producer.
+__host__ __device__ constexpr int resident_consumers(int B) {
+  return resident_tile(B) * (B / 8) + 32;
+}
+__host__ __device__ constexpr int resident_threads(int B) {
+  return resident_consumers(B) + resident_producers(B) * (B / 8);
+}
+
+// Entries of the stages' twiddle tables (fft_common.cuh's StageTables
+// layout, 8 points a thread).
+__host__ __device__ constexpr int resident_stage_entries(int B) {
+  int n = 0;
+  for (int ns = 8; ns < B; ns *= 8)
+    n += (bbcat::stage_radix(B, 8, ns) - 1) * ns;
+  return n;
+}
+
+// Its shared memory: the stages' twiddles, the filter [P, F], the ring of
+// P + 2 RT - 1 windows and the tile's spectra [RT, F], all complex.
 __host__ __device__ constexpr long long resident_smem(int P, int B) {
-  return (2LL * B + (2LL * P + 2 * resident_tile(B) - 1) * (B + 1)) * 8;
+  return (resident_stage_entries(B) +
+          (2LL * P + 3LL * resident_tile(B) - 1) * (B + 1)) *
+         8;
 }
 
 // The stages' twiddles in shared memory, in fft_common.cuh's StageTables
@@ -355,24 +394,20 @@ struct SharedStageTables {
   }
 };
 
-// tw[0 .. B] and the stages' twiddles behind them, from the period table
-// tw [2B] in device memory, by all ``nthreads`` threads of the CTA.
+// The stages' twiddles from the period table tw [2B] in device memory, by
+// all ``nthreads`` threads of the CTA.
 template <int B>
-__device__ __forceinline__ void load_tables(float2* tws, const float2* tw,
-                                            int nthreads) {
-  constexpr int kStages = bbcat::stage_tables_size<B, 8, B>();
-  for (int o = threadIdx.x; o < B + 1 + kStages; o += nthreads) {
-    if (o <= B) {
-      tws[o] = tw[o];
-      continue;
-    }
-    int ns = 8, at = B + 1;  // stage ns's table starts at ``at``
+__device__ __forceinline__ void load_stage_tables(float2* stw,
+                                                  const float2* tw,
+                                                  int nthreads) {
+  for (int o = threadIdx.x; o < resident_stage_entries(B); o += nthreads) {
+    int ns = 8, at = 0;  // stage ns's table starts at ``at``
     for (;;) {
       const int R = bbcat::stage_radix(B, 8, ns);
       if (o < at + (R - 1) * ns) {
         const int q = 1 + (o - at) / ns;
         const int k = (o - at) % ns;
-        tws[o] = tw[q * k * (2 * B / (ns * R))];
+        stw[o] = tw[q * k * (2 * B / (ns * R))];
         break;
       }
       at += (R - 1) * ns;
@@ -404,16 +439,24 @@ struct SharedFilterAt {
 };
 
 // A barrier of one transform's T threads (a multiple of 32 from B = 256
-// on), named 1 + the transform's place in the tile; below that, of all
-// the tile's NT transform threads.
-template <int B, int NT>
+// on) named ``id``; below that, of the N threads of all the transforms
+// that share ``id``.
+template <int B, int N>
 struct TransformSync {
   int id;
   __device__ __forceinline__ void operator()() const {
     if constexpr (B >= 256)
       asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(B / 8) : "memory");
     else
-      asm volatile("bar.sync 1, %0;" ::"n"(NT) : "memory");
+      asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(N) : "memory");
+  }
+};
+
+// Named barrier ID of N threads (whole warps): a role's, or the CTA's.
+template <int ID, int N>
+struct NamedSync {
+  __device__ __forceinline__ void operator()() const {
+    asm volatile("bar.sync %0, %1;" ::"n"(ID), "n"(N) : "memory");
   }
 };
 
@@ -436,27 +479,49 @@ __device__ __forceinline__ void load_pairs(float2 (&v)[8], const float* xr,
 }
 
 // The bins of the real n-point transform whose packed transform thread t
-// holds in v, to ``put(k, X[k])``: k = t + m T, thread 0 also k = B.
-template <int B, int NT, typename Put>
-__device__ __forceinline__ void put_bins(const float2 (&v)[8], float2* buf,
-                                         const float2* tws, int t,
-                                         const TransformSync<B, NT>& bar,
-                                         const Put& put) {
+// holds in v, to ``put(k, X[k])``: the pairs k, B - k for k = t + m T < B/2
+// (k = 0 gives DC and Nyquist) and, by thread 0, the middle bin B/2.  The
+// transform goes through buf [B] in natural order; each thread reads and
+// puts only its own pairs' places, so ``put`` may write buf in place.
+template <int B, typename Sync, typename Put>
+__device__ __forceinline__ void put_pairs(const float2 (&v)[8], float2* buf,
+                                          const float2* tw, int t,
+                                          const Sync& bar, const Put& put) {
   constexpr int T = B / 8;
   bar();  // the transform's last exchange's readers are done
 #pragma unroll
   for (int m = 0; m < 8; ++m) buf[t + m * T] = v[m];
   bar();
+  float2 zk[4], zc[4];
 #pragma unroll
-  for (int m = 0; m <= 8; ++m) {
-    if (m == 8 && t != 0) break;  // thread 0 takes the Nyquist bin
-    const int k = (m == 8) ? B : t + m * T;
-    put(k, real_bin(buf, k, B, tws[k]));
+  for (int m = 0; m < 4; ++m) {
+    const int k = t + m * T;
+    zk[m] = buf[k];
+    zc[m] = buf[(B - k) & (B - 1)];
   }
+  const float2 mid = (t == 0) ? buf[B / 2] : make_float2(0.0f, 0.0f);
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int k = t + m * T;
+    float2 xk, xmk;
+    bbcat::real_bin_pair(zk[m], zc[m], k, __ldg(tw + k), xk, xmk);
+    put(k, xk);
+    put(B - k, xmk);
+  }
+  if (t == 0) put(B / 2, make_float2(mid.x, -mid.y));  // conj(Z[B/2])
 }
 
+// One CTA a channel, in two roles.  The consumer (the first
+// resident_consumers(B) threads) takes tile n's MAC over the ring and its
+// inverses; the producer (the rest) meanwhile puts tile n + 1's windows
+// into the ring, each transform exchanged through the slot it fills.  The
+// ring's P + 2 RT - 1 slots hold tile n's MAC's windows and tile n + 1's
+// at once, so one hand-off a tile, a barrier of the whole CTA, keeps the
+// two apart.  The consumer transforms tile 0 itself, while the producer
+// starts on tile 1; after its last tile the producer transforms the half
+// window of the carry out, in the slots of a tile that no MAC reads.
 template <int B>
-__global__ void __launch_bounds__(resident_tile(B) * (B / 8) + 32, 1)
+__global__ void __launch_bounds__(resident_threads(B), 1)
 resident_kernel(const float* __restrict__ x,       // [C, R*B]
                 const float* __restrict__ xcarry,  // [2, P, C, F]
                 const float* __restrict__ prev,    // [2, C, F]
@@ -469,63 +534,62 @@ resident_kernel(const float* __restrict__ x,       // [C, R*B]
   constexpr int F = B + 1;
   constexpr int T = B / 8;
   constexpr int RT = resident_tile(B);
-  constexpr int NT = RT * T;    // the transforms' threads, a multiple of 32
-  constexpr int NTH = NT + 32;  // and the Nyquist warp
-  const int S = P + RT - 1;     // ring slots
+  constexpr int NPR = resident_producers(B);  // producer transforms
+  constexpr int ROUNDS = RT / NPR;
+  constexpr int NT = RT * T;                  // the consumer's transforms
+  constexpr int NC = resident_consumers(B);   // and its Nyquist warp
+  constexpr int NTH = resident_threads(B);
+  // named barriers: 1 .. RT the consumer's transforms, RT + 1 .. the
+  // producer's (1 and 2 below B = 256), then these two
+  static_assert(B < 256 || RT + NPR <= 13, "barrier ids");
+  static_assert(NTH <= 1024 && NT % 32 == 0 && (NPR * T) % 32 == 0, "warps");
+  const NamedSync<14, NTH> handoff;  // the whole CTA, once a tile
+  const NamedSync<15, NC> consumer;  // the consumer alone
+  const int S = P + 2 * RT - 1;      // ring slots
   extern __shared__ float2 smem[];
-  float2* tws = smem;                                  // [2B]
-  float2* hs = tws + 2 * B;                            // [P, F]
-  float2* ring = hs + static_cast<size_t>(P) * F;      // [S, F]
-  float2* bufs = ring + static_cast<size_t>(S) * F;    // [RT, F]
+  float2* stw = smem;                                        // stage twiddles
+  float2* hs = stw + resident_stage_entries(B);              // [P, F]
+  float2* ring = hs + static_cast<size_t>(P) * F;            // [S, F]
+  float2* bufs = ring + static_cast<size_t>(S) * F;          // [RT, F]
   const int c = blockIdx.x;
   const size_t part = static_cast<size_t>(C) * F;
   const size_t plane = static_cast<size_t>(P) * part;
   const size_t cf = static_cast<size_t>(c) * F;
   const float* xr = x + static_cast<size_t>(c) * R * B;
   const int tid = threadIdx.x;
-  const bool fft_thread = tid < NT;
-  const int r = tid / T;  // the thread's block in a tile
-  const int t = tid % T;
-  float2* buf = bufs + r * F;
-  const TransformSync<B, NT> bar{1 + r};
+  const int ntiles = (R + RT - 1) / RT;
 
-  // The filter and the carried windows 1 .. P-1 (window m in slot m; no
-  // output reads window 0, nor does the new carry) copy in behind the
-  // first tile's transforms: the tile writes slots P .. S-1 and 0 alone.
-  for (int o = tid; o < P * F; o += NTH) {
-    const int p = o / F;
-    const size_t g = p * part + cf + (o - p * F);
-    __pipeline_memcpy_async(&hs[o].x, H + g, 4);
-    __pipeline_memcpy_async(&hs[o].y, H + plane + g, 4);
-    if (p > 0) {
-      __pipeline_memcpy_async(&ring[o].x, xcarry + g, 4);
-      __pipeline_memcpy_async(&ring[o].y, xcarry + plane + g, 4);
-    }
-  }
-  __pipeline_commit();
-  float2 xv[8];  // the next transform's pairs
-  if (fft_thread) load_pairs<B>(xv, xr, r > 0 ? r - 1 : 0, r == 0, r < R, t);
-  load_tables<B>(tws, tw, NTH);
+  load_stage_tables<B>(stw, tw, NTH);
   __syncthreads();
 
-  for (int i0 = 0; i0 < R; i0 += RT) {
+  if (tid < NC) {
+    const bool fft_thread = tid < NT;
+    const int r = tid / T;  // the thread's block in a tile
+    const int t = tid % T;
+    float2* buf = bufs + r * F;
+    const TransformSync<B, NT> bar{B >= 256 ? 1 + r : 1};
+    // The filter and the carried windows 1 .. P-1 (window m in slot m; no
+    // output reads window 0, nor does the new carry) copy in behind tile
+    // 0's transforms, which write slots P .. P + RT - 1.
+    for (int o = tid; o < P * F; o += NC) {
+      const int p = o / F;
+      const size_t g = p * part + cf + (o - p * F);
+      __pipeline_memcpy_async(&hs[o].x, H + g, 4);
+      __pipeline_memcpy_async(&hs[o].y, H + plane + g, 4);
+      if (p > 0) {
+        __pipeline_memcpy_async(&ring[o].x, xcarry + g, 4);
+        __pipeline_memcpy_async(&ring[o].y, xcarry + plane + g, 4);
+      }
+    }
+    __pipeline_commit();
     if (fft_thread) {
-      // window P + i0 + r, of block j = i0 + r, into its slot
-      const int j = i0 + r;
+      // window P + r, of block r: [x_0, 0] and ``prev`` for r = 0
       float2 v[8];
-#pragma unroll
-      for (int m = 0; m < 8; ++m) v[m] = xv[m];
-      fft_regs<B>(v, buf, SharedStageTables<B>{tws + B + 1}, t, bar,
-                  Swizzled<8>());
-      // the next tile's pairs, or after the last tile the half window
-      // [x_{R-1}, 0] of the carry out, go in flight behind the MAC
-      if (i0 + RT < R)
-        load_pairs<B>(xv, xr, i0 + RT + r - 1, false, i0 + RT + r < R, t);
-      else
-        load_pairs<B>(xv, xr, R - 1, true, r == 0, t);
-      float2* slot = ring + static_cast<size_t>((P + j) % S) * F;
-      put_bins<B, NT>(v, buf, tws, t, bar, [&](int k, float2 w) {
-        if (j == 0) {
+      load_pairs<B>(v, xr, r > 0 ? r - 1 : 0, r == 0, r < R, t);
+      float2* slot = ring + static_cast<size_t>(P + r) * F;
+      fft_regs<B>(v, slot, SharedStageTables<B>{stw}, t, bar, Swizzled<8>());
+      put_pairs<B>(v, slot, tw, t, bar, [&](int k, float2 w) {
+        if (r == 0) {
           const float sg = (k & 1) ? -1.0f : 1.0f;
           w = make_float2(prev[cf + k] + sg * w.x,
                           prev[part + cf + k] + sg * w.y);
@@ -533,72 +597,91 @@ resident_kernel(const float* __restrict__ x,       // [C, R*B]
         slot[k] = w;
       });
     }
-    if (i0 == 0) __pipeline_wait_prior(0);
-    __syncthreads();
+    __pipeline_wait_prior(0);
+    consumer();
 
-    // the MAC of outputs i0 .. i0 + RT - 1 into bufs
-    const int base = (P + i0) % S;  // the slot of window P + i0
-    if (fft_thread) {
-      for (int k = tid; k < B; k += NT) {
-        float2 acc[RT];
+    for (int i0 = 0; i0 < R; i0 += RT) {
+      if (i0 > 0) handoff();  // the producer has put tile i0's windows
+      // the MAC of outputs i0 .. i0 + RT - 1 into bufs
+      const int base = (P + i0) % S;  // the slot of window P + i0
+      if (fft_thread) {
+        for (int k = tid; k < B; k += NT) {
+          float2 acc[RT];
 #pragma unroll
-        for (int q = 0; q < RT; ++q) acc[q] = make_float2(0.0f, 0.0f);
-        window_mac<RT, kAhead, true>(acc, P, RingAt<F>{ring + k, base, S},
-                                     SharedFilterAt<F>{hs + k});
+          for (int q = 0; q < RT; ++q) acc[q] = make_float2(0.0f, 0.0f);
+          window_mac<RT, kAhead, true>(acc, P, RingAt<F>{ring + k, base, S},
+                                       SharedFilterAt<F>{hs + k});
 #pragma unroll
-        for (int q = 0; q < RT; ++q) bufs[q * F + k] = acc[q];
+          for (int q = 0; q < RT; ++q) bufs[q * F + k] = acc[q];
+        }
+      } else if (tid - NT < RT) {
+        // lane q: the Nyquist bin of output i0 + q
+        const int q = tid - NT;
+        float2 acc[1] = {make_float2(0.0f, 0.0f)};
+        window_mac<1, kAhead, true>(
+            acc, P, RingAt<F>{ring + B, base + q - (base + q >= S ? S : 0), S},
+            SharedFilterAt<F>{hs + B});
+        bufs[q * F + B] = acc[0];
       }
-    } else if (tid - NT < RT) {
-      // lane q: the Nyquist bin of output i0 + q
-      const int q = tid - NT;
-      float2 acc[1] = {make_float2(0.0f, 0.0f)};
-      window_mac<1, kAhead, true>(
-          acc, P, RingAt<F>{ring + B, base + q - (base + q >= S ? S : 0), S},
-          SharedFilterAt<F>{hs + B});
-      bufs[q * F + B] = acc[0];
+      consumer();
+
+      if (fft_thread) {
+        // the inverse of output i0 + r: the forward transform of the
+        // packed spectrum with re and im swapped
+        float2 v[8];
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+          const int k = t + m * T;
+          const float2 z = packed_bin(buf[k], buf[B - k], k, __ldg(tw + k));
+          v[m] = make_float2(z.y, z.x);
+        }
+        fft_regs<B>(v, buf, SharedStageTables<B>{stw}, t, bar, Swizzled<8>());
+        if (i0 + r < R) {
+          float2* yp = reinterpret_cast<float2*>(
+              y + (static_cast<size_t>(c) * R + i0 + r) * B);
+          const float scale = 1.0f / B;
+#pragma unroll
+          for (int m = 4; m < 8; ++m)
+            yp[t + (m - 4) * T] = make_float2(v[m].y * scale, v[m].x * scale);
+        }
+      }
     }
-    __syncthreads();
-
-    if (fft_thread) {
-      // the inverse of output i0 + r: the forward transform of the packed
-      // spectrum with re and im swapped
-      float2 v[8];
-#pragma unroll
-      for (int m = 0; m < 8; ++m) {
-        const int k = t + m * T;
-        const float2 z = packed_bin(buf[k], buf[B - k], k, tws[k]);
-        v[m] = make_float2(z.y, z.x);
+  } else {
+    const int g = (tid - NC) / T;  // the thread's transform
+    const int t = (tid - NC) % T;
+    const TransformSync<B, NPR * T> bar{B >= 256 ? 1 + RT + g : 2};
+    // tile i0 / RT's blocks i0 + h NPR + g, h < ROUNDS, from tile 1 on
+    for (int i0 = RT; i0 < R; i0 += RT) {
+      for (int h = 0; h < ROUNDS; ++h) {
+        const int j = i0 + h * NPR + g;
+        float2* slot = ring + static_cast<size_t>((P + j) % S) * F;
+        float2 v[8];
+        load_pairs<B>(v, xr, j - 1, false, j < R, t);
+        fft_regs<B>(v, slot, SharedStageTables<B>{stw}, t, bar,
+                    Swizzled<8>());
+        put_pairs<B>(v, slot, tw, t, bar,
+                     [&](int k, float2 w) { slot[k] = w; });
       }
-      fft_regs<B>(v, buf, SharedStageTables<B>{tws + B + 1}, t, bar,
-                  Swizzled<8>());
-      if (i0 + r < R) {
-        float2* yp = reinterpret_cast<float2*>(
-            y + (static_cast<size_t>(c) * R + i0 + r) * B);
-        const float scale = 1.0f / B;
-#pragma unroll
-        for (int m = 4; m < 8; ++m)
-          yp[t + (m - 4) * T] = make_float2(v[m].y * scale, v[m].x * scale);
-      }
+      handoff();  // tile i0 / RT's windows are in
     }
-  }
-
-  // the half spectrum of the last block for the carry out (block r = 0;
-  // the other blocks' pairs are zero)
-  if (fft_thread) {
+    // the half window [x_{R-1}, 0] for the carry out (transform g = 0; the
+    // others' pairs are zero), in the slot of window P + ntiles RT + g:
+    // its window, at most (ntiles - 1) RT, is read by no MAC still to come
+    // nor by the carry
+    float2* slot = ring + static_cast<size_t>((P + ntiles * RT + g) % S) * F;
     float2 v[8];
-#pragma unroll
-    for (int m = 0; m < 8; ++m) v[m] = xv[m];
-    fft_regs<B>(v, buf, SharedStageTables<B>{tws + B + 1}, t, bar,
-                Swizzled<8>());
-    put_bins<B, NT>(v, buf, tws, t, bar, [&](int k, float2 w) {
-      if (r == 0) {
+    load_pairs<B>(v, xr, R - 1, true, g == 0, t);
+    fft_regs<B>(v, slot, SharedStageTables<B>{stw}, t, bar, Swizzled<8>());
+    put_pairs<B>(v, slot, tw, t, bar, [&](int k, float2 w) {
+      if (g == 0) {
         prev_out[cf + k] = w.x;
         prev_out[part + cf + k] = w.y;
       }
     });
   }
-  // the new carry, windows R .. P + R - 1, from the ring (the last tile's
-  // windows were written before the last MAC's barrier)
+
+  // the new carry, windows R .. P + R - 1, from the ring
+  __syncthreads();
   for (int q = 0, s = R % S; q < P; ++q, s = (s + 1 == S) ? 0 : s + 1) {
     const float2* w = ring + static_cast<size_t>(s) * F;
     for (int k = tid; k < F; k += NTH) {
@@ -619,9 +702,9 @@ int launch_resident(const float* x, const float* xcarry, const float* prev,
       resident_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  resident_kernel<B><<<C, resident_tile(B) * (B / 8) + 32,
-                       static_cast<size_t>(smem), stream>>>(
-      x, xcarry, prev, H, tw, y, xcarry_out, prev_out, C, P, R);
+  resident_kernel<B><<<C, resident_threads(B), static_cast<size_t>(smem),
+                       stream>>>(x, xcarry, prev, H, tw, y, xcarry_out,
+                                 prev_out, C, P, R);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -633,11 +716,12 @@ extern "C" {
 // of ``sms`` SMs whose blocks may opt into ``smem`` bytes of shared
 // memory: 1, resident, where the channels fill the SMs, R fills a tile and
 // a channel fits in shared memory; else 0, windowed.  On an H100 the
-// resident schedule is the faster there at every shape measured but one
-// channel an SM at R = 1, and the slower below the SM count at any R,
-// however far the windowed one's scratch outgrows the L2 (64 channels at
-// R = 448, 16 at R = 2000); scripts/kernel_times.py --only K1 sweeps both.
-// ops/kernels/fused_head.py mirrors the rule.
+// resident schedule is the faster there at every shape measured (and at
+// R = 2 and 4 from 132 channels on, left to the windowed one); below the SM
+// count it is the faster from 64 channels at R <= 112, and the slower where
+// a channel's blocks outgrow that (64 channels at R = 448, 16 at R =
+// 2000), so the line stays at the SM count; scripts/kernel_times.py
+// --only K1 sweeps both.  ops/kernels/fused_head.py mirrors the rule.
 int bbcat_fused_head_schedule(int C, int P, int B, int R, long long smem,
                               int sms) {
   return (C >= sms && R >= resident_tile(B) && resident_smem(P, B) <= smem)

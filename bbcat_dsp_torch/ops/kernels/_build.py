@@ -13,7 +13,8 @@ The launch counters live here too: a wrapper adds one to its kernel's
 count right after a launch succeeds, and a plain version adds one to its
 own count each time it runs (:func:`count_plain`): to ``PLAIN_CALLS``, or
 to ``ADJOINT_CALLS`` when it runs as the adjoint of a backward pass
-(inside :func:`adjoint`).
+(inside :func:`adjoint`).  A kernel with several schedules also counts
+each launch under the schedule it ran, in ``SCHEDULE_CALLS``.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import torch
 
 __all__ = ["library", "check", "require", "require_cuda", "stream_of",
            "count_plain", "adjoint", "LAUNCHES", "PLAIN_CALLS",
-           "ADJOINT_CALLS"]
+           "ADJOINT_CALLS", "SCHEDULE_CALLS"]
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -49,6 +50,10 @@ KERNELS = ("fused_head", "rfft_half", "xt_grouped_mac", "irfft_tail",
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS: dict[str, int] = dict.fromkeys(KERNELS, 0)
 ADJOINT_CALLS: dict[str, int] = dict.fromkeys(KERNELS, 0)
+# the kernel calls of a kernel that picks one of several schedules, by
+# ``<kernel>.<schedule>``
+SCHEDULE_CALLS: dict[str, int] = {"fused_head.resident": 0,
+                                  "fused_head.windowed": 0}
 # per thread: a CUDA backward pass runs in autograd's own thread
 _COUNTING = threading.local()
 

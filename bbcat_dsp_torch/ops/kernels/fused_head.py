@@ -8,7 +8,8 @@ rule): the resident one, a launch with one CTA a channel that keeps the
 channel's filter and its last windows in shared memory, where the channels
 fill the SMs; else the windowed one, two launches on the stream (every
 block's window into a scratch, then the MAC and the inverses).  A call
-counts as one launch of the kernel either way.  ``fused_head_plain`` is its
+counts as one launch of the kernel either way, and one call of its
+schedule in ``_build.SCHEDULE_CALLS``.  ``fused_head_plain`` is its
 PyTorch version, the unfused ``_head_spectra -> MAC -> irfft_tail_planes``
 composition of ``adjoint.xla_fused_head``.
 """
@@ -77,13 +78,27 @@ def fused_head_plain(x: torch.Tensor, xcarry: torch.Tensor,
 
 def resident_tile(B: int) -> int:
     """Output blocks a tile of the resident schedule."""
-    return 4 if B > 512 else 8
+    return 2 if B > 512 else 8
+
+
+def _stage_entries(B: int) -> int:
+    """Twiddles of the register FFT's stages after the first (8 points a
+    thread): ``(radix - 1) * ns`` for each stage that finds ``ns``
+    points combined."""
+    n, ns = 0, 8
+    while ns < B:
+        n += (min(8, B // ns) - 1) * ns
+        ns *= 8
+    return n
 
 
 def resident_smem_bytes(P: int, B: int) -> int:
-    """Shared memory of the resident schedule's CTA: the twiddle table, the
-    filter, the ring of ``P + tile - 1`` windows and the tile's spectra."""
-    return (2 * B + (2 * P + 2 * resident_tile(B) - 1) * (B + 1)) * 8
+    """Shared memory of the resident schedule's CTA: the stages' twiddles,
+    the filter, the ring of ``P + 2 tile - 1`` windows (the tile the MAC
+    reads and the next one, which the producer writes meanwhile) and the
+    tile's spectra."""
+    return (_stage_entries(B)
+            + (2 * P + 3 * resident_tile(B) - 1) * (B + 1)) * 8
 
 
 def fused_head_schedule(C: int, P: int, B: int, R: int, smem_bytes: int,
@@ -151,6 +166,8 @@ def _launch(schedule, x, xcarry, prev, H, block, C, P, R, dev):
                                            _build.stream_of(x))
     _build.check(code, "fused_head")
     _build.LAUNCHES["fused_head"] += 1
+    _build.SCHEDULE_CALLS["fused_head." + ("windowed" if windowed
+                                           else "resident")] += 1
     return y, xcarry_out, prev_out
 
 

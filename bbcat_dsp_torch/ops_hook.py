@@ -14,7 +14,8 @@ the tangents forward.  Any other call dispatches straight to the kernel.
 :func:`counts` reads, and :func:`reset_counts` zeroes, the kernels' launch
 counts, the plain versions' call counts and the plain versions' runs as
 the adjoints of a backward pass, so a run can show which of them its path
-went through, and the tallies of the program's spans.  Each dispatch
+went through, K1's launches by the schedule they took, and the tallies of
+the program's spans.  Each dispatch
 function is the span ``ops_hook.<kernel>`` (host time only), one check of
 the profiler's state when no profiler runs.
 """
@@ -124,16 +125,19 @@ def xt_step_mac(queue, xt, H, slot: int, retire: bool = False):
 
 def counts() -> dict:
     """``{"launches": {kernel: n}, "plain": {kernel: n}, "adjoint":
-    {kernel: n}, "spans": {span: tally}}``, the last from
+    {kernel: n}, "schedules": {"<kernel>.<schedule>": n}, "spans": {span:
+    tally}}``, the last from
     :func:`~bbcat_dsp_torch.utils.profiling.tallies`."""
     return {"launches": dict(_build.LAUNCHES),
             "plain": dict(_build.PLAIN_CALLS),
             "adjoint": dict(_build.ADJOINT_CALLS),
+            "schedules": dict(_build.SCHEDULE_CALLS),
             "spans": profiling.tallies()}
 
 
 def reset_counts() -> None:
-    for d in (_build.LAUNCHES, _build.PLAIN_CALLS, _build.ADJOINT_CALLS):
+    for d in (_build.LAUNCHES, _build.PLAIN_CALLS, _build.ADJOINT_CALLS,
+              _build.SCHEDULE_CALLS):
         for k in d:
             d[k] = 0
     profiling.reset_tallies()

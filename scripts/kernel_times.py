@@ -3,7 +3,7 @@
 K4), tail MAC (K2) and single-step tail MAC (K2s) on one NVIDIA GPU.
 
     python3 scripts/kernel_times.py                  # from the repo root
-    python3 scripts/kernel_times.py --define K1_TILE=8 --define K1_TILE=4
+    python3 scripts/kernel_times.py --only K1 --against ../parent  # before
     python3 scripts/kernel_times.py --only K34       # K3 and K4 alone
     python3 scripts/kernel_times.py --only K2        # the tail MAC alone
     python3 scripts/kernel_times.py --only K2s       # the single step alone
@@ -41,7 +41,10 @@ earlier kernels' times (K2s only where the tree has it).
 Each ``--define NAME=VALUE`` (comma-separated for several at once) builds
 the library once more with ``-DNAME=VALUE`` and times it in turn, then the
 plain build again: a way to compare values of a constant that the source
-gives an ``#ifndef`` default for the length of an experiment.  Exits
+gives an ``#ifndef`` default for the length of an experiment.
+``--against DIR`` builds the kernels of another checkout (an earlier
+commit, unpacked with ``git archive``) and times them the same way, between
+two builds of this one: a kernel's before and after from one card.  Exits
 nonzero without a card or if a kernel disagrees with its plain version.
 """
 
@@ -102,6 +105,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--define", action="append", default=[],
                     help="NAME=VALUE[,NAME=VALUE...]: one more build")
+    ap.add_argument("--against", metavar="DIR",
+                    help="one more build, of another checkout's kernels "
+                         "(the same C interface), between two of this one")
     ap.add_argument("--only", default="K1,K7,K34,K2,K2s",
                     help="which of K1, K7, K34, K2, K2s each build runs")
     args = ap.parse_args()
@@ -327,17 +333,25 @@ def main() -> int:
                 del q, xt, H, want_q
         return ok
 
-    base = list(_build.NVCC_FLAGS)
-    builds = [[]] + [[f"-D{d}" for d in spec.split(",")]
-                     for spec in args.define]
-    if args.define:
-        builds.append([])
+    base, here = list(_build.NVCC_FLAGS), _build.CSRC_DIR
+    builds = [([], here)] + [([f"-D{d}" for d in spec.split(",")], here)
+                             for spec in args.define]
+    if args.against:
+        builds.append(([], Path(args.against).resolve()
+                       / "bbcat_dsp_torch" / "csrc"))
+    if len(builds) > 1:
+        builds.append(([], here))
     ok = True
-    for flags in builds:
+    for flags, csrc in builds:
         _build._LIB = None
         _build.NVCC_FLAGS[:] = base + flags
-        print(f"=== build {flags or 'as committed'} ({card})", flush=True)
-        ok &= one_build(" ".join(flags) or "default")
+        _build.CSRC_DIR = csrc
+        _build.BUILD_LOG = ""   # a build that exists prints no ptxas lines
+        tag = (" ".join(flags) or "default") if csrc == here else "against"
+        print(f"=== build {flags or 'as committed'} of {csrc} ({card})",
+              flush=True)
+        ok &= one_build(tag)
+    _build.CSRC_DIR = here
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)

@@ -183,56 +183,92 @@ def _fused_head_model(x, xcarry, prev, H, B):
     return y, planes(carry), planes(prev_out)
 
 
+def _k1_producers(B):
+    """Transforms the producer of ``resident_kernel`` (csrc/fused_head.cu)
+    runs side by side: half the tile's, at least a warp of B/8 threads."""
+    RT = k1.resident_tile(B)
+    return min(RT, max(RT // 2, -(-32 // (B // 8))))
+
+
 def _fused_head_resident_model(x, xcarry, prev, H, B):
-    """The resident schedule of ``csrc/fused_head.cu``: per channel (one
-    CTA) a ring of ``P + tile - 1`` window slots, window m in slot m mod S,
-    the carried windows 1 .. P-1 copied in (no output reads window 0);
-    per tile of outputs ``i0 .. i0 + tile - 1`` the tile's windows into the
-    ring (blocks past the last give zero windows), the MAC over the ring
-    alone with the filter (p ascending; the kernel fuses each product into
-    the sum), the inverses' last B samples; then the new carry read from
-    the ring and the half spectrum of ``[x_{R-1}, 0]``."""
+    """The resident schedule of ``csrc/fused_head.cu``, a pipeline: per
+    channel (one CTA) a ring of ``S = P + 2 tile - 1`` window slots, window
+    m in slot m mod S, the carried windows 1 .. P-1 copied in (no output
+    reads window 0).  The consumer puts tile 0's windows into the ring
+    itself (blocks past the last give zero windows); then, between one
+    hand-off and the next, it runs tile n's MAC over the ring (p ascending;
+    the kernel fuses each product into the sum) and the inverses' last B
+    samples, while the producer puts tile n + 1's windows, or after its
+    last tile transforms the half window ``[x_{R-1}, 0]`` for the carry
+    out through the slots of windows ``P + tiles * tile + g``.  Here the
+    producer's writes of an interval land before the consumer's MAC of the
+    same interval, the order that would expose a slot written too early,
+    and every write asserts that its slot holds no window a MAC of the
+    interval still reads.  The new carry is read from the ring at the
+    end.  Channels are independent: the model runs them side by side."""
     C, T = x.shape
     R, P, F = T // B, H.shape[1], B + 1
     n = 2 * B
     RT = k1.resident_tile(B)
-    S = P + RT - 1
+    S = P + 2 * RT - 1
+    tiles = -(-R // RT)
     sign = torch.where(torch.arange(F) % 2 == 1, -1.0, 1.0)
-    Hc = torch.complex(H[0], H[1])
+    Hc = torch.complex(H[0], H[1])                       # [P, C, F]
     xc = torch.complex(xcarry[0], xcarry[1])
     pc = torch.complex(prev[0], prev[1])
+    xb = x.reshape(C, R, B)
+    ring = torch.full((S, C, F), float("nan"), dtype=torch.complex64)
+    held = [None] * S                                    # window in a slot
+    pending = set()                                      # slots a MAC reads
+
+    def put(m, w):
+        s = m % S
+        assert s not in pending, f"slot {s} written while a MAC reads it"
+        ring[s], held[s] = w, m
+
+    def half(blk):
+        w = torch.fft.rfft(xb[:, blk], n=n)
+        w.imag[:, [0, -1]] = 0.0
+        return w
+
+    def window(j):
+        if j >= R:
+            return torch.zeros((C, F), dtype=torch.complex64)
+        if j == 0:
+            return pc + sign * half(0)
+        return torch.fft.rfft(torch.cat([xb[:, j - 1], xb[:, j]], dim=1))
+
+    for m in range(1, P):                                # cp.async
+        put(m, xc[m])
+    for r in range(RT):                                  # the consumer
+        put(P + r, window(r))
     y = torch.full((C, T), float("nan"))
-    carry = torch.full((P, C, F), float("nan"), dtype=torch.complex64)
-    prev_out = torch.full((C, F), float("nan"), dtype=torch.complex64)
-    for c in range(C):
-        ring = torch.full((S, F), float("nan"), dtype=torch.complex64)
-        for m in range(1, P):
-            ring[m] = xc[m, c]
-        for i0 in range(0, R, RT):
+    prev_out = None
+    for i in range(tiles):
+        i0 = i * RT
+        base = (P + i0) % S
+        reads = {(base - d) % S for d in range(-(RT - 1), P)}
+        for s_ in reads:                                 # windows i0 + 1 ..
+            assert held[s_] is not None and i0 + 1 <= held[s_] < P + i0 + RT
+        pending = reads
+        if i + 1 < tiles:                                # the producer
             for r in range(RT):
-                j = i0 + r
-                if j >= R:
-                    w = torch.zeros(F, dtype=torch.complex64)
-                elif j == 0:
-                    w = torch.fft.rfft(x[c, :B], n=n)
-                    w.imag[[0, -1]] = 0.0
-                    w = pc[c] + sign * w
-                else:
-                    w = torch.fft.rfft(x[c, (j - 1) * B:(j + 1) * B])
-                ring[(P + j) % S] = w
-            base = (P + i0) % S
-            acc = _window_mac_model(RT, 4, P, lambda d: ring[(base - d) % S],
-                                    lambda p: Hc[p, c])
-            for r in range(min(RT, R - i0)):
-                a = acc[r].clone()
-                a.imag[[0, -1]] = 0.0
-                y[c, (i0 + r) * B:(i0 + r + 1) * B] = torch.fft.irfft(
-                    a, n=n)[B:]
-        for q in range(P):
-            carry[q, c] = ring[(R + q) % S]
-        w = torch.fft.rfft(x[c, (R - 1) * B:R * B], n=n)
-        w.imag[[0, -1]] = 0.0
-        prev_out[c] = w
+                put(P + i0 + RT + r, window(i0 + RT + r))
+        else:
+            for g in range(_k1_producers(B)):            # exchange scratch
+                put(P + tiles * RT + g,
+                    torch.full((C, F), float("nan"), dtype=torch.complex64))
+            prev_out = half(R - 1)
+        acc = _window_mac_model(RT, 4, P, lambda d: ring[(base - d) % S],
+                                lambda p: Hc[p])
+        pending = set()
+        for r in range(min(RT, R - i0)):
+            a = acc[r].clone()
+            a.imag[:, [0, -1]] = 0.0
+            y[:, (i0 + r) * B:(i0 + r + 1) * B] = torch.fft.irfft(
+                a, n=n)[:, B:]
+    assert [held[(R + q) % S] for q in range(P)] == list(range(R, P + R))
+    carry = torch.stack([ring[(R + q) % S] for q in range(P)])
     planes = lambda z: torch.stack([z.real, z.imag])
     return y, planes(carry), planes(prev_out)
 
@@ -293,8 +329,18 @@ H100_SMEM, H100_SMS = 232448, 132
     (5, 6, 32, 10),    # odd C (one CTA a channel), B = 32
     (2, 3, 128, 16),   # R a multiple of the tile, the ring wraps often
     (2, 1, 64, 9),     # one partition: the ring holds the tile alone
-    (2, 3, 1024, 5),   # B = 1024: the tile of 4
-    (1, 9, 1024, 2),   # the most partitions a channel at B = 1024 holds
+    (2, 3, 1024, 5),   # B = 1024: the tile of 2, the last one ragged
+    (1, 9, 1024, 2),   # B = 1024: one tile
+    # the shapes test_fused_head_schedule_rule finds resident, at two
+    # channels (each runs alone in its CTA): config #5's render and its
+    # channel shard, the streaming super-step (one tile, as at C = 132),
+    # P = 9 at B = 1024
+    (2, 16, 512, 112),
+    (2, 16, 512, 8),
+    (2, 9, 1024, 56),
+    (2, 16, 512, 9),   # one block past the first tile
+    (2, 16, 512, 113),  # a ragged last tile after 14 full ones
+    (1, 11, 1024, 3),  # the most partitions a channel at B = 1024 holds
 ])
 def test_fused_head_resident_schedule_matches_plain_and_contract(
         rng, C, P, B, R):
@@ -339,12 +385,16 @@ def test_fused_head_schedule_thresholds():
     assert k1.fused_head_schedule(C, P, B, R, H100_SMEM, C) == "resident"
     assert k1.fused_head_schedule(C, P, B, R, H100_SMEM, C + 1) == "windowed"
     # R a tile
-    assert k1.resident_tile(B) == 8 and k1.resident_tile(1024) == 4
+    assert k1.resident_tile(B) == 8 and k1.resident_tile(1024) == 2
     assert k1.fused_head_schedule(C, P, B, 8, H100_SMEM, C) == "resident"
     assert k1.fused_head_schedule(C, P, B, 7, H100_SMEM, C) == "windowed"
     # and the channel must fit in shared memory
     need = k1.resident_smem_bytes(P, B)
-    assert need == 201080   # tables 8192 + filter 65664 + ring 94392 + tile
+    # stage twiddles 4032 + filter 65664 + ring of 31 windows 127224 + tile
+    assert need == 229752
+    assert k1.resident_smem_bytes(11, 1024) <= H100_SMEM
+    assert k1.resident_smem_bytes(12, 1024) > H100_SMEM
+    assert k1.resident_smem_bytes(17, B) > H100_SMEM
     assert k1.fused_head_schedule(C, P, B, R, need - 1, 1) == "windowed"
     assert k1.fused_head_schedule(C, P, B, R, need, 1) == "resident"
 
