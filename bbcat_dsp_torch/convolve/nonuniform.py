@@ -169,66 +169,51 @@ def _tail_step_xt(state: ConvolverState, H, x, H_old=None,
         return ConvolverState(queue, xt, state.step + 1), y
 
 
+def _head_step_mac(xcarry, prev, H, x, block: int, H_old=None):
+    """Head over ``x [C, k*block]``, any ``k >= 1``, by K3, K7 and K4 in
+    place of K1: ``(y_head [C, k*block], xcarry', prev')``.  With
+    ``H_old`` the first small block fades from the old filter to ``H``
+    over ``r[n] = (n + 1) / block``; the others run ``H`` alone."""
+    C, T = x.shape
+    k = T // block
+    xext, prev = _head_history(xcarry, prev, x, block, k)
+    y = ops_hook.irfft_tail(ops_hook.head_mac(xext, H, k),
+                            2 * block)                    # [k, C, B]
+    y0 = y[0]
+    if H_old is not None:
+        # the old filter for block 0 only: the MAC reads the first P + 1
+        # slots of the whole history (no sliced copy)
+        y_old0 = ops_hook.irfft_tail(ops_hook.head_mac(xext, H_old, 1),
+                                     2 * block)[0]
+        r = _ramp(block, x.device)
+        y0 = (1 - r) * y_old0 + r * y0
+        if k > 1:
+            y = torch.cat([y0[None], y[1:]])
+    # one small block is returned as it is, with no copy
+    y_head = y0 if k == 1 else y.transpose(0, 1).reshape(C, T)
+    return y_head, xext[:, -H.shape[1]:].contiguous(), prev
+
+
 def _super_step(state: NonUniformState, H_head, H_tail, x, block: int,
-                in_place: bool = False):
+                in_place: bool = False, H_old=None):
     """One super-block ``x [C, B2]`` -> ``y [C, B2]``; ``in_place`` as
-    :func:`_tail_step_xt` takes it."""
-    y_head, xcarry, prev = _head_step(state.xcarry, state.prev, H_head, x,
-                                      block)
+    :func:`_tail_step_xt` takes it.  ``H_old = (H_head_old, H_tail_old)``
+    makes it the super-block in which an IR exchange begins: the head fades
+    over its first small block (K3, K7, K4 in place of K1), the tail over
+    the whole super-block."""
+    if H_old is None:
+        y_head, xcarry, prev = _head_step(state.xcarry, state.prev, H_head,
+                                          x, block)
+        H_tail_old = None
+    else:
+        y_head, xcarry, prev = _head_step_mac(state.xcarry, state.prev,
+                                              H_head, x, block, H_old[0])
+        H_tail_old = H_old[1]
     y = y_head + state.pending[0]
-    tail, out_tail = _tail_step_xt(state.tail, H_tail, x, in_place=in_place)
-    pending = torch.stack([state.pending[1], out_tail])
-    return NonUniformState(xcarry, prev, tail, pending), y
-
-
-def _super_step_crossfade(state: NonUniformState, H_head, H_head_new, H_tail,
-                          H_tail_new, x, block: int, in_place: bool = False):
-    """The super-block in which an IR exchange begins: the head fades over
-    its first small block, the tail over the whole super-block."""
-    B = block
-    C, SB = x.shape
-    ratio = SB // B
-    P = H_head.shape[1]
-    xext, prev = _head_history(state.xcarry, state.prev, x, B, ratio)
-    y_new = ops_hook.irfft_tail(ops_hook.head_mac(xext, H_head_new, ratio),
-                                2 * B)                     # [ratio, C, B]
-    # the old filter for block 0 only: the MAC reads the first P + 1 slots
-    # of the whole history (no sliced copy)
-    y_old0 = ops_hook.irfft_tail(ops_hook.head_mac(xext, H_head, 1), 2 * B)[0]
-    r = _ramp(B, x.device)
-    y0 = (1 - r) * y_old0 + r * y_new[0]
-    y2 = torch.cat([y0[None], y_new[1:]])
-    y = y2.transpose(0, 1).reshape(C, SB) + state.pending[0]
-    tail, out_tail = _tail_step_xt(state.tail, H_tail_new, x, H_old=H_tail,
+    tail, out_tail = _tail_step_xt(state.tail, H_tail, x, H_old=H_tail_old,
                                    in_place=in_place)
     pending = torch.stack([state.pending[1], out_tail])
-    return NonUniformState(xext[:, -P:].contiguous(), prev, tail, pending), y
-
-
-def _head_step_single(xcarry, prev, H_head, x):
-    """One small block of the head, ``x [C, B]`` -> ``(y_head [C, B],
-    xcarry', prev')``: K3, then K7, then K4."""
-    with span("nonuniform.head_step"):
-        B = x.shape[-1]
-        xext, prev = _head_history(xcarry, prev, x, B, 1)
-        y = ops_hook.irfft_tail(ops_hook.head_mac(xext, H_head, 1),
-                                2 * B)[0]
-        return y, xext[:, -H_head.shape[1]:].contiguous(), prev
-
-
-def _head_step_single_crossfade(xcarry, prev, H_old, H_new, x):
-    """:func:`_head_step_single` fading from ``H_old`` to ``H_new``."""
-    with span("nonuniform.head_step"):
-        B = x.shape[-1]
-        xext, prev = _head_history(xcarry, prev, x, B, 1)
-
-        def run(H):
-            return ops_hook.irfft_tail(ops_hook.head_mac(xext, H, 1),
-                                       2 * B)[0]
-
-        r = _ramp(B, x.device)
-        y = (1 - r) * run(H_old) + r * run(H_new)
-        return y, xext[:, -H_old.shape[1]:].contiguous(), prev
+    return NonUniformState(xcarry, prev, tail, pending), y
 
 
 def _render_group(state: NonUniformState, xg, H_head, H_tail, block: int):
@@ -461,16 +446,13 @@ class NonUniformConvolver:
         st = self._owned(self._state)
         if self.dtype != torch.float32:
             st = self._widened(st)
-        if self._pending_swap is not None:
-            Hh, Ht = self._pending_swap
-            self._state, y = _super_step_crossfade(
-                st, self.H_head, Hh, self.H_tail, Ht, x, self.block,
-                in_place=True)
-            self.H_head, self.H_tail = Hh, Ht
-            self._pending_swap = None
-        else:
-            self._state, y = _super_step(st, self.H_head, self.H_tail, x,
-                                        self.block, in_place=True)
+        swap = self._pending_swap
+        H_old = None if swap is None else (self.H_head, self.H_tail)
+        H_head, H_tail = swap or (self.H_head, self.H_tail)
+        self._state, y = _super_step(st, H_head, H_tail, x, self.block,
+                                     in_place=True, H_old=H_old)
+        self.H_head, self.H_tail = H_head, H_tail
+        self._pending_swap = None
         return y
 
     def process_small_block(self, x) -> torch.Tensor:
@@ -482,15 +464,15 @@ class NonUniformConvolver:
             B = self.block
             x = self._input(x, B, "small block")
             st = self._state
-            if self._pending_swap is not None:
-                Hh, self._tail_swap = self._pending_swap
-                y_head, xcarry, prev = _head_step_single_crossfade(
-                    st.xcarry, st.prev, self.H_head, Hh, x)
-                self.H_head = Hh
+            swap = self._pending_swap
+            H_old = None if swap is None else self.H_head
+            H_head = self.H_head if swap is None else swap[0]
+            with span("nonuniform.head_step"):
+                y_head, xcarry, prev = _head_step_mac(
+                    st.xcarry, st.prev, H_head, x, B, H_old)
+            if swap is not None:
+                self.H_head, self._tail_swap = swap
                 self._pending_swap = None
-            else:
-                y_head, xcarry, prev = _head_step_single(
-                    st.xcarry, st.prev, self.H_head, x)
             off = self._sb_fill * B
             y = y_head + st.pending[0][:, off:off + B]
             self._sb_buf[:, off:off + B] = x  # in place: the buffer is ours

@@ -15,8 +15,8 @@
 // [x_0, 0] and adds ``prev``.  acc_i is an FIR over the block index, so
 // every window depends on the input and the incoming carry alone.
 //
-// Two schedules, which bbcat_fused_head picks from the shape and the card
-// (bbcat_fused_head_schedule):
+// Two schedules, which the caller picks from the shape and the card
+// (ops/kernels/fused_head.py::fused_head_schedule):
 //
 // The windowed schedule (C = 64, R = 48: the headline render; R = 8: the
 // streaming super-step).  Bound: memory, x and y (4CRB bytes each), H and
@@ -712,47 +712,16 @@ int launch_resident(const float* x, const float* xcarry, const float* prev,
 
 extern "C" {
 
-// The schedule for C channels, P partitions, block B and R blocks on a card
-// of ``sms`` SMs whose blocks may opt into ``smem`` bytes of shared
-// memory: 1, resident, where the channels fill the SMs, R fills a tile and
-// a channel fits in shared memory; else 0, windowed.  On an H100 the
-// resident schedule is the faster there at every shape measured (and at
-// R = 2 and 4 from 132 channels on, left to the windowed one); below the SM
-// count it is the faster from 64 channels at R <= 112, and the slower where
-// a channel's blocks outgrow that (64 channels at R = 448, 16 at R =
-// 2000), so the line stays at the SM count; scripts/kernel_times.py
-// --only K1 sweeps both.  ops/kernels/fused_head.py mirrors the rule.
-int bbcat_fused_head_schedule(int C, int P, int B, int R, long long smem,
-                              int sms) {
-  return (C >= sms && R >= resident_tile(B) && resident_smem(P, B) <= smem)
-             ? 1
-             : 0;
-}
-
-// The schedule bbcat_fused_head takes on the current device, or minus a
-// CUDA error code.
-int bbcat_fused_head_schedule_here(int C, int P, int B, int R) {
-  int dev = 0, smem = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return -static_cast<int>(e);
-  return bbcat_fused_head_schedule(C, P, B, R, smem, sms);
-}
-
-// One schedule (0 windowed, 1 resident).  Block B a power of two in
+// K1 in one schedule (0 windowed, 1 resident).  Block B a power of two in
 // [32, 1024]; any C, P, R >= 1 (the windowed one 65535 tiles of R).  tw is
 // the [2B] complex table exp(-2 pi i m / 2B); win the windowed schedule's
-// scratch of C (P + R) (B + 1) complex values (unused by the resident one,
-// which needs resident_smem(P, B) bytes of shared memory).
-int bbcat_fused_head_as(const float* x, const float* xcarry,
-                        const float* prev, const float* H, const void* tw,
-                        float* y, float* xcarry_out, float* prev_out,
-                        void* win, int C, int P, int B, int R, int schedule,
-                        cudaStream_t stream) {
+// scratch of C (P + R) (B + 1) complex values (null for the resident one,
+// which needs resident_smem(P, B) bytes of shared memory: where the card
+// has less, the launch fails in cudaFuncSetAttribute).
+int bbcat_fused_head(const float* x, const float* xcarry, const float* prev,
+                     const float* H, const void* tw, float* y,
+                     float* xcarry_out, float* prev_out, void* win, int C,
+                     int P, int B, int R, int schedule, cudaStream_t stream) {
   if (C < 1 || P < 1 || R < 1 || (schedule != 0 && schedule != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const float2* twp = static_cast<const float2*>(tw);
@@ -775,18 +744,6 @@ int bbcat_fused_head_as(const float* x, const float* xcarry,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-// The schedule bbcat_fused_head_schedule_here picks; ``win`` may be null
-// where that is the resident one.
-int bbcat_fused_head(const float* x, const float* xcarry, const float* prev,
-                     const float* H, const void* tw, float* y,
-                     float* xcarry_out, float* prev_out, void* win, int C,
-                     int P, int B, int R, cudaStream_t stream) {
-  const int schedule = bbcat_fused_head_schedule_here(C, P, B, R);
-  if (schedule < 0) return -schedule;
-  return bbcat_fused_head_as(x, xcarry, prev, H, tw, y, xcarry_out, prev_out,
-                             win, C, P, B, R, schedule, stream);
 }
 
 }  // extern "C"

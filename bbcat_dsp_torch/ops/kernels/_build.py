@@ -13,8 +13,7 @@ The launch counters live here too: a wrapper adds one to its kernel's
 count right after a launch succeeds, and a plain version adds one to its
 own count each time it runs (:func:`count_plain`): to ``PLAIN_CALLS``, or
 to ``ADJOINT_CALLS`` when it runs as the adjoint of a backward pass
-(inside :func:`adjoint`).  A kernel with several schedules also counts
-each launch under the schedule it ran, in ``SCHEDULE_CALLS``.
+(inside :func:`adjoint`).
 """
 
 from __future__ import annotations
@@ -34,7 +33,7 @@ import torch
 
 __all__ = ["library", "check", "require", "require_cuda", "stream_of",
            "count_plain", "adjoint", "LAUNCHES", "PLAIN_CALLS",
-           "ADJOINT_CALLS", "SCHEDULE_CALLS"]
+           "ADJOINT_CALLS"]
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -50,10 +49,6 @@ KERNELS = ("fused_head", "rfft_half", "xt_grouped_mac", "irfft_tail",
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS: dict[str, int] = dict.fromkeys(KERNELS, 0)
 ADJOINT_CALLS: dict[str, int] = dict.fromkeys(KERNELS, 0)
-# the kernel calls of a kernel that picks one of several schedules, by
-# ``<kernel>.<schedule>``
-SCHEDULE_CALLS: dict[str, int] = {"fused_head.resident": 0,
-                                  "fused_head.windowed": 0}
 # per thread: a CUDA backward pass runs in autograd's own thread
 _COUNTING = threading.local()
 
@@ -61,10 +56,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argument types (pointers, ints, then the stream)
 _SIGNATURES = {
-    "bbcat_fused_head": [_P] * 9 + [_I] * 4 + [_P],
-    "bbcat_fused_head_as": [_P] * 9 + [_I] * 5 + [_P],
-    "bbcat_fused_head_schedule": [_I] * 4 + [ctypes.c_longlong, _I],
-    "bbcat_fused_head_schedule_here": [_I] * 4,
+    "bbcat_fused_head": [_P] * 9 + [_I] * 5 + [_P],
     "bbcat_rfft_half": [_P] * 3 + [_I] * 2 + [_P],
     "bbcat_irfft_tail": [_P] * 3 + [_I] * 2 + [_P],
     "bbcat_xt_grouped_mac": [_P] * 4 + [_I] * 4 + [_P],

@@ -2,16 +2,17 @@
 
 ``fused_head_cuda`` launches ``csrc/fused_head.cu`` (the port of
 ``fused_head_pallas`` in the JAX package's ``ops/pallas/fused_head.py``), which
-carries its own FFTs, in one of two schedules that the kernel library picks
-from the shape and the card (:func:`fused_head_schedule` mirrors its
-rule): the resident one, a launch with one CTA a channel that keeps the
-channel's filter and its last windows in shared memory, where the channels
-fill the SMs; else the windowed one, two launches on the stream (every
-block's window into a scratch, then the MAC and the inverses).  A call
-counts as one launch of the kernel either way, and one call of its
-schedule in ``_build.SCHEDULE_CALLS``.  ``fused_head_plain`` is its
-PyTorch version, the unfused ``_head_spectra -> MAC -> irfft_tail_planes``
-composition of ``adjoint.xla_fused_head``.
+carries its own FFTs, in one of two schedules that
+:func:`fused_head_schedule` picks from the shape and the card: the
+resident one, a launch with one CTA a channel that keeps the channel's
+filter and its last windows in shared memory, where the channels fill the
+SMs; else the windowed one, two launches on the stream (every block's
+window into a scratch, then the MAC and the inverses).  A call counts as
+one launch of the kernel either way; the trace's kernel names
+(``resident_kernel`` against ``windows_kernel`` and
+``mac_inverse_kernel``) tell the schedules apart.  ``fused_head_plain``
+is its PyTorch version, the unfused ``_head_spectra -> MAC ->
+irfft_tail_planes`` composition of ``adjoint.xla_fused_head``.
 """
 
 from __future__ import annotations
@@ -77,7 +78,8 @@ def fused_head_plain(x: torch.Tensor, xcarry: torch.Tensor,
 
 
 def resident_tile(B: int) -> int:
-    """Output blocks a tile of the resident schedule."""
+    """Output blocks a tile of the resident schedule: ``resident_tile`` of
+    ``csrc/fused_head.cu``."""
     return 2 if B > 512 else 8
 
 
@@ -93,23 +95,45 @@ def _stage_entries(B: int) -> int:
 
 
 def resident_smem_bytes(P: int, B: int) -> int:
-    """Shared memory of the resident schedule's CTA: the stages' twiddles,
-    the filter, the ring of ``P + 2 tile - 1`` windows (the tile the MAC
-    reads and the next one, which the producer writes meanwhile) and the
-    tile's spectra."""
+    """Shared memory of the resident schedule's CTA (``resident_smem`` of
+    ``csrc/fused_head.cu``, which the launch asks for): the stages'
+    twiddles, the filter, the ring of ``P + 2 tile - 1`` windows (the tile
+    the MAC reads and the next one, which the producer writes meanwhile)
+    and the tile's spectra."""
     return (_stage_entries(B)
             + (2 * P + 3 * resident_tile(B) - 1) * (B + 1)) * 8
 
 
 def fused_head_schedule(C: int, P: int, B: int, R: int, smem_bytes: int,
                         sms: int) -> str:
-    """The schedule ``bbcat_fused_head_schedule`` picks on a card of
-    ``sms`` SMs whose CTAs may opt into ``smem_bytes`` of shared memory:
-    resident where the channels fill the SMs, R fills its tile and a
-    channel fits in shared memory, else windowed."""
+    """The schedule K1 runs in for C channels, P partitions, block B and R
+    blocks on a card of ``sms`` SMs whose CTAs may opt into ``smem_bytes``
+    of shared memory: resident where the channels fill the SMs, R fills its
+    tile and a channel fits in shared memory, else windowed.
+
+    On an H100 the resident schedule is the faster there at every shape
+    measured (and at R = 2 and 4 from 132 channels on, left to the windowed
+    one); below the SM count it is the faster from 64 channels at R <= 112,
+    and the slower where a channel's blocks outgrow that (64 channels at
+    R = 448, 16 at R = 2000), so the line stays at the SM count;
+    ``scripts/kernel_times.py --only K1`` sweeps both."""
     resident = (C >= sms and R >= resident_tile(B)
                 and resident_smem_bytes(P, B) <= smem_bytes)
     return SCHEDULES[resident]
+
+
+_CARD_LIMITS: dict[torch.device, tuple[int, int]] = {}
+
+
+def _card_limits(device: torch.device) -> tuple[int, int]:
+    """``(smem_bytes, sms)`` of the card ``device``, the arguments
+    :func:`fused_head_schedule` takes from it: the shared memory a CTA may
+    opt into and the SM count, read once per card."""
+    if device not in _CARD_LIMITS:
+        props = torch.cuda.get_device_properties(device)
+        _CARD_LIMITS[device] = (props.shared_memory_per_block_optin,
+                                props.multi_processor_count)
+    return _CARD_LIMITS[device]
 
 
 def _checked(x, xcarry, prev, H, block):
@@ -136,55 +160,44 @@ def _checked(x, xcarry, prev, H, block):
 
 
 def _launch(schedule, x, xcarry, prev, H, block, C, P, R, dev):
-    """One call of the kernel in ``schedule``, or where that is None in the
-    schedule the library picks (``bbcat_fused_head``)."""
+    """One call of the kernel in ``schedule``.  A resident launch whose CTA
+    does not fit the card fails in the library and raises here."""
     B, F = block, block + 1
-    lib = _build.library()
-    if schedule is None:
-        # the pick decides whether the call needs the windowed scratch
-        with torch.cuda.device(dev):
-            picked = lib.bbcat_fused_head_schedule_here(C, P, B, R)
-        if picked < 0:
-            _build.check(-picked, "fused_head")
-    windowed = (schedule or SCHEDULES[picked]) == "windowed"
     y = torch.empty_like(x)
     xcarry_out = torch.empty_like(xcarry)
     prev_out = torch.empty_like(prev)
     # the windowed schedule's windows, behind the carried ones, as complex
     # pairs; the resident one keeps them in shared memory
     win = (torch.empty((C, P + R, F, 2), dtype=torch.float32, device=dev)
-           if windowed else None)
-    args = (x.data_ptr(), xcarry.data_ptr(), prev.data_ptr(), H.data_ptr(),
-            _twiddles(B, dev).data_ptr(), y.data_ptr(), xcarry_out.data_ptr(),
-            prev_out.data_ptr(), None if win is None else win.data_ptr(),
-            C, P, B, R)
+           if schedule == "windowed" else None)
     with torch.cuda.device(dev):
-        if schedule is None:
-            code = lib.bbcat_fused_head(*args, _build.stream_of(x))
-        else:
-            code = lib.bbcat_fused_head_as(*args, SCHEDULES.index(schedule),
-                                           _build.stream_of(x))
+        code = _build.library().bbcat_fused_head(
+            x.data_ptr(), xcarry.data_ptr(), prev.data_ptr(), H.data_ptr(),
+            _twiddles(B, dev).data_ptr(), y.data_ptr(),
+            xcarry_out.data_ptr(), prev_out.data_ptr(),
+            None if win is None else win.data_ptr(), C, P, B, R,
+            SCHEDULES.index(schedule), _build.stream_of(x))
     _build.check(code, "fused_head")
     _build.LAUNCHES["fused_head"] += 1
-    _build.SCHEDULE_CALLS["fused_head." + ("windowed" if windowed
-                                           else "resident")] += 1
     return y, xcarry_out, prev_out
 
 
 def fused_head_cuda(x: torch.Tensor, xcarry: torch.Tensor,
                     prev: torch.Tensor, H: torch.Tensor, block: int):
     """Launch the K1 kernel; same contract as :func:`fused_head_plain`.
-    Serves a power-of-two ``block`` from 32 to 1024 and any C, P, R; the
-    kernel library picks the schedule from the shape and the card."""
-    return _launch(None, x, xcarry, prev, H, block,
-                   *_checked(x, xcarry, prev, H, block))
+    Serves a power-of-two ``block`` from 32 to 1024 and any C, P, R, in the
+    schedule :func:`fused_head_schedule` picks for the shape and the
+    card."""
+    C, P, R, dev = _checked(x, xcarry, prev, H, block)
+    schedule = fused_head_schedule(C, P, block, R, *_card_limits(dev))
+    return _launch(schedule, x, xcarry, prev, H, block, C, P, R, dev)
 
 
 def fused_head_cuda_as(schedule: str, x: torch.Tensor, xcarry: torch.Tensor,
                        prev: torch.Tensor, H: torch.Tensor, block: int):
     """The K1 kernel in the named schedule of :data:`SCHEDULES`, whatever
-    the shape: for timing the two apart.  The port's paths call
-    :func:`fused_head_cuda`."""
+    the shape: for timing and checking the two apart.  The
+    port's paths call :func:`fused_head_cuda`."""
     if schedule not in SCHEDULES:
         raise ValueError(f"schedule {schedule!r} is not one of {SCHEDULES}")
     return _launch(schedule, x, xcarry, prev, H, block,

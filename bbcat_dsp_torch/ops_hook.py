@@ -125,19 +125,16 @@ def xt_step_mac(queue, xt, H, slot: int, retire: bool = False):
 
 def counts() -> dict:
     """``{"launches": {kernel: n}, "plain": {kernel: n}, "adjoint":
-    {kernel: n}, "schedules": {"<kernel>.<schedule>": n}, "spans": {span:
-    tally}}``, the last from
+    {kernel: n}, "spans": {span: tally}}``, the last from
     :func:`~bbcat_dsp_torch.utils.profiling.tallies`."""
     return {"launches": dict(_build.LAUNCHES),
             "plain": dict(_build.PLAIN_CALLS),
             "adjoint": dict(_build.ADJOINT_CALLS),
-            "schedules": dict(_build.SCHEDULE_CALLS),
             "spans": profiling.tallies()}
 
 
 def reset_counts() -> None:
-    for d in (_build.LAUNCHES, _build.PLAIN_CALLS, _build.ADJOINT_CALLS,
-              _build.SCHEDULE_CALLS):
+    for d in (_build.LAUNCHES, _build.PLAIN_CALLS, _build.ADJOINT_CALLS):
         for k in d:
             d[k] = 0
     profiling.reset_tallies()

@@ -17,8 +17,8 @@ Phases, each of which exits nonzero on failure:
    general one, at every queue cursor; K9 also over a bfloat16 and a
    float16 queue, each a kernel of its own in the JSON line, on both its
    vector and its one-bin path, and timed warm and with a cold L2 beside
-   the kernel as first ported (``K9_AS_PORTED_SRC``), a launch that does
-   next to nothing and ``torch.sum`` over the same bytes; K3, K4, K7
+   a launch that does next to nothing and ``torch.sum`` over the same
+   bytes; K3, K4, K7
    and K9 at BASELINE config #1's shapes, C = 1; K2s at config #5's tail,
    P = 14, C = 1024, F = 4097, over each queue type at three slots, its
    queue after the slot write equal to the plain version's), with
@@ -221,7 +221,6 @@ lists every kernel with its launches, error, times and bound.
 from __future__ import annotations
 
 import contextlib
-import itertools
 import json
 import re
 import statistics
@@ -252,106 +251,6 @@ STREAM_KERNELS = RENDER_KERNELS | {"head_mac"}
 SUPER_STEP_KERNELS = RENDER_KERNELS | {"xt_step_mac"}
 BLOCK_KERNELS = {"rfft_half", "rotated_mac", "irfft_tail", "head_mac"}
 
-
-# K9 as first ported: one thread per (c, f) walks all P partitions, a
-# narrow queue in 2-byte loads.  Kept here only to time it beside the
-# redesigned kernel in csrc/spectral_mac.cu within one call (phase 3); the
-# port never calls it and counts nothing.
-K9_AS_PORTED_SRC = r"""
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-
-namespace {
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float widen(__half v) { return __half2float(v); }
-
-template <typename Q>
-__global__ void rotated_mac_as_ported(const Q* __restrict__ queue,
-                                      const float* __restrict__ H,
-                                      float* __restrict__ out, int P, int slot,
-                                      long long S) {
-  const long long n = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (n >= S) return;
-  const long long plane = static_cast<long long>(P) * S;
-  float ar = 0.0f, ai = 0.0f;
-  int k = slot;
-#pragma unroll 4
-  for (int p = 0; p < P; ++p) {
-    const long long q = static_cast<long long>(k) * S + n;
-    const long long h = static_cast<long long>(p) * S + n;
-    const float qr = widen(queue[q]), qi = widen(queue[plane + q]);
-    const float gr = H[h], gi = H[plane + h];
-    ar += qr * gr - qi * gi;
-    ai += qr * gi + qi * gr;
-    k = (k == 0) ? P - 1 : k - 1;
-  }
-  out[n] = ar;
-  out[S + n] = ai;
-}
-
-template <typename Q>
-void launch(const void* queue, const float* H, float* out, int P, int slot,
-            long long S, cudaStream_t stream) {
-  rotated_mac_as_ported<Q><<<static_cast<unsigned>((S + 127) / 128), 128, 0,
-                             stream>>>(static_cast<const Q*>(queue), H, out,
-                                       P, slot, S);
-}
-}  // namespace
-
-extern "C" int k9_as_ported(const void* queue, const float* H, float* out,
-                            int P, int C, int F, int slot, int qtype,
-                            cudaStream_t stream) {
-  const long long S = static_cast<long long>(C) * F;
-  if (qtype == 0) launch<float>(queue, H, out, P, slot, S, stream);
-  else if (qtype == 1) launch<__nv_bfloat16>(queue, H, out, P, slot, S, stream);
-  else launch<__half>(queue, H, out, P, slot, S, stream);
-  return static_cast<int>(cudaGetLastError());
-}
-"""
-
-
-def start_k9_as_ported(nvcc: str, flags: list, where: Path):
-    """Start ``nvcc`` on :data:`K9_AS_PORTED_SRC` into ``where``; returns
-    the process and the library's path (for :func:`load_k9_as_ported`)."""
-    src, so = where / "k9_as_ported.cu", where / "libk9_as_ported.so"
-    src.write_text(K9_AS_PORTED_SRC)
-    cmd = [nvcc, *[f for f in flags if f not in ("-Xptxas", "-v")],
-           "-shared", "-o", str(so), str(src)]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True), so
-
-
-def load_k9_as_ported(proc, so: Path):
-    """Wait for :func:`start_k9_as_ported`'s build and bind it: a callable
-    ``(queue, H, slot) -> [2, C, F]`` with K9's contract."""
-    import ctypes
-
-    import torch
-
-    log = proc.communicate()[0]
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on the as-ported K9:\n{log}")
-    fn = ctypes.CDLL(str(so)).k9_as_ported
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    codes = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-
-    def call(queue, H, slot):
-        _, P, Cc, F = H.shape
-        out = torch.empty((2, Cc, F), dtype=torch.float32, device=H.device)
-        code = fn(queue.data_ptr(), H.data_ptr(), out.data_ptr(), P, Cc, F,
-                  slot % P, codes[queue.dtype],
-                  torch.cuda.current_stream(H.device).cuda_stream)
-        if code != 0:
-            raise RuntimeError(f"the as-ported K9: CUDA error {code}")
-        return out
-
-    return call
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
@@ -654,16 +553,7 @@ def main() -> None:
     dev = torch.device("cuda")
 
     # ---- 2. build ------------------------------------------------------------
-    # the as-ported K9 (timing only) compiles beside the port's kernels
-    as_ported_dir = tempfile.TemporaryDirectory()
-    k9_old_build = start_k9_as_ported(_build._nvcc(), _build.NVCC_FLAGS,
-                                      Path(as_ported_dir.name))
-    try:
-        _build.library()
-    except BaseException:
-        k9_old_build[0].kill()
-        raise
-    k9_as_ported = load_k9_as_ported(*k9_old_build)
+    _build.library()
     print(f"build: {_build.BUILD_SECONDS:.1f} s", flush=True)
     for line in _build.BUILD_LOG.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -736,8 +626,8 @@ def main() -> None:
     # 7, 17 and 48 (with P = 1) across the edges of the kernel's tiles of
     # 4 output blocks (8 at B = 32, 2 at B = 1024); C = 131 and 132 on
     # either side of the card's SM count, R = 7 and 8 on either side of
-    # the resident schedule's tile.  Each shape goes through the library's
-    # pick, which must be fused_head_schedule's for this card, and, where
+    # the resident schedule's tile.  Each shape goes through the wrapper,
+    # in the schedule fused_head_schedule picks for this card, and, where
     # the resident schedule fits its shared memory, through the schedule it
     # did not pick: both are held against the plain version everywhere.
     def k1_cost(Cc, P, B, R):
@@ -747,21 +637,9 @@ def main() -> None:
         return (4.0 * (2 * Cc * R * B + 3 * 2 * P * Cc * F + 2 * 2 * Cc * F),
                 2 * fft_flops(Cc * R, B) + 8.0 * P * Cc * R * F)
 
-    k1_lib = _build.library()
-    props = torch.cuda.get_device_properties(dev)
-    k1_card = (getattr(props, "shared_memory_per_block_optin", 232448),
-               props.multi_processor_count)
+    k1_card = k1._card_limits(dev)
     print(f"fused_head's rule on this card: shared memory {k1_card[0]} "
           f"bytes a CTA, {k1_card[1]} SMs", flush=True)
-    for shape, smem, sms in itertools.product(
-            ((64, 16, 512, 48), (1024, 16, 512, 112), (131, 16, 512, 48),
-             (132, 16, 512, 7), (132, 16, 512, 8), (1024, 20, 512, 112),
-             (1, 9, 1024, 4), (1, 10, 1024, 4), (8, 3, 32, 5)),
-            (0, 229752, 232448), (1, 131, 132, 4096)):
-        want = k1.SCHEDULES.index(k1.fused_head_schedule(*shape, smem, sms))
-        if k1_lib.bbcat_fused_head_schedule(*shape, smem, sms) != want:
-            fail(f"fused_head's schedule at {shape}, shared memory {smem}, "
-                 f"{sms} SMs: the library and fused_head_schedule disagree")
     k1_err, bad, k1_step = None, [], None
     for Cc, P, B, R in ((C, 16, BLOCK, T_RENDER // BLOCK), (C, 16, BLOCK, 8),
                         (1, 1, 32, 1), (5, 6, 32, 4), (8, 6, 32, 16),
@@ -774,14 +652,11 @@ def main() -> None:
         F = B + 1
         args = (randn(Cc, R * B), randn(2, P, Cc, F), randn(2, Cc, F),
                 randn(2, P, Cc, F))
-        picked = k1_lib.bbcat_fused_head_schedule_here(Cc, P, B, R)
-        if picked not in (0, 1):
-            fail(f"bbcat_fused_head_schedule_here: CUDA error {-picked}")
-        picked = k1.SCHEDULES[picked]
+        picked = k1.fused_head_schedule(Cc, P, B, R, *k1_card)
         runs = [(f"{picked}, picked", lambda a=args, b=B:
                  k1.fused_head_cuda(*a, b))]
         other = k1.SCHEDULES[picked == "windowed"]
-        if other == "windowed" or k1.resident_smem_bytes(P, B) <= 232448:
+        if other == "windowed" or k1.resident_smem_bytes(P, B) <= k1_card[0]:
             runs.append((other, lambda a=args, b=B, o=other:
                          k1.fused_head_cuda_as(o, *a, b)))
         want = k1.fused_head_plain(*args, B)
@@ -795,9 +670,6 @@ def main() -> None:
                   flush=True)
             if not min(snrs) >= 110.0:
                 bad.append(f"fused_head C={Cc} P={P} B={B} R={R} ({tag})")
-        if picked != k1.fused_head_schedule(Cc, P, B, R, *k1_card):
-            fail(f"fused_head C={Cc} P={P} B={B} R={R} took the {picked} "
-                 "schedule, not fused_head_schedule's")
         if k1_err is None:
             got = k1.fused_head_cuda(*args, B)
             k1_err = max(float((g - w).abs().max()) for g, w in zip(got, want))
@@ -1117,9 +989,8 @@ def main() -> None:
         if bad:
             fail(f"below {bar:.0f} dB: {bad}")
 
-    # K9's times, warm and with a cold L2, beside the as-ported kernel's
-    # (K9_AS_PORTED_SRC) on the same operands in this call: the step's
-    # shape at slot 37 and config #1's block, in each queue type
+    # K9's times, warm and with a cold L2: the step's shape at slot 37 and
+    # config #1's block, in each queue type
     for name, dt, _ in K9_NAMES:
         err, bench_args = k9_bench[name]
         qsize = bench_args[0].element_size()
@@ -1131,15 +1002,12 @@ def main() -> None:
                  k9_bench[name + " config #1"])):
             new = [median_ms(lambda: k79.rotated_mac_cuda(*ops, slot),
                              cold=cold) for cold in (False, True)]
-            old = [median_ms(lambda: k9_as_ported(*ops, slot), cold=cold)
-                   for cold in (False, True)]
             b_ms, _ = bound(*k9_cost(P, Cc, F, 2 * qsize))
             rows.append(new)
             print(f"{name} {label}: kernel {new[0]:.4f} ms warm, "
                   f"{new[1]:.4f} ms cold L2 ({100 * b_ms / new[0]:.0f}%, "
                   f"{100 * b_ms / new[1]:.0f}% of the bound "
-                  f"{b_ms:.4f} ms); as first ported {old[0]:.4f} ms warm, "
-                  f"{old[1]:.4f} ms cold L2  ({card})", flush=True)
+                  f"{b_ms:.4f} ms)  ({card})", flush=True)
         if dt != torch.float32:
             qbytes = 2.0 * P_UNIFORM * C * FQ * qsize
             print(f"{name}: the queue {qbytes / 1e6:.1f} MB against "
@@ -1215,7 +1083,8 @@ def main() -> None:
     del xr, pr, spec
     # K1 at config #5 takes the resident schedule; the windowed one is
     # timed beside it on the same operands, in turns
-    if k1_lib.bbcat_fused_head_schedule_here(C5, 16, BLOCK, T5 // BLOCK) != 1:
+    if k1.fused_head_schedule(C5, 16, BLOCK, T5 // BLOCK,
+                              *k1._card_limits(dev)) != "resident":
         fail("fused_head at config #5's shape did not pick the resident "
              "schedule")
     k1_args5 = (randn(C5, T5), randn(2, 16, C5, BLOCK + 1),

@@ -17,7 +17,7 @@ launches) of K1 at R = 48, 8 and 1 (C = 64, P = 16, B = 512) and at BASELINE
 config #5's shape (C = 1024, R = 112), each in both of its schedules (the
 windowed one's two launches apart, torch.profiler), and over a sweep of C
 and R about the SM count and the L2 (``K1_SWEEP``, the schedules in
-turns, with the library's pick), of
+turns, with the pick of ``fused_head_schedule``), of
 K7 at its four path shapes, of K3 and
 K4 at their four path shapes (the render's 384 rows and the super-step's
 64 rows of n = 8192, the streamed block's 64 and the uniform render's 3072
@@ -202,8 +202,8 @@ def main() -> int:
                  randn(2, Pp, Cc, F))
             want = k1.fused_head_plain(*a, Bb)
             for sched in k1.SCHEDULES:
-                if (sched == "resident"
-                        and k1.resident_smem_bytes(Pp, Bb) > 232448):
+                if (sched == "resident" and k1.resident_smem_bytes(Pp, Bb)
+                        > k1._card_limits(dev)[0]):
                     continue
                 run = lambda: k1.fused_head_cuda_as(sched, *a, Bb)
                 got = run()
@@ -224,8 +224,8 @@ def main() -> int:
             for sched in (*k1.SCHEDULES, *reversed(k1.SCHEDULES)):
                 turns[sched].append(median_ms(
                     lambda: k1.fused_head_cuda_as(sched, *a, B)))
-            picked = k1.SCHEDULES[
-                _build.library().bbcat_fused_head_schedule_here(Cc, P, B, R)]
+            picked = k1.fused_head_schedule(Cc, P, B, R,
+                                            *k1._card_limits(dev))
             print(f"{tag} K1 sweep C={Cc} R={R} scratch "
                   f"{Cc * (P + R) * (B + 1) * 8 / 1e6:.1f} MB: "
                   + ", ".join(f"{k} " + " / ".join(f"{t:.4f}" for t in v)
