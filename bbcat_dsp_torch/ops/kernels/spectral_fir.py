@@ -15,14 +15,17 @@ from ...convolve.fft import half_window_signs
 from . import _build
 
 __all__ = ["cplane_mac", "xt_grouped_mac_plain", "xt_grouped_mac_cuda",
-           "XT_MAX_PARTS", "XT_UNROLLED_PARTS"]
+           "XT_MAX_PARTS", "XT_UNROLLED_PARTS", "XT_VEC"]
 
 # the most partitions whose per-thread shared columns (3P-1 complex values)
 # fit 32 threads in a CTA's 227 KB (csrc/xt_grouped_mac.cu)
 XT_MAX_PARTS = 303
-# up to this many partitions the kernel runs unrolled from registers
+# up to this many partitions the kernel runs from registers
 # (``kUnrolledParts`` there), above it the general shared-memory kernel
-XT_UNROLLED_PARTS = 8
+XT_UNROLLED_PARTS = 16
+# elements a thread of the register kernel owns where C F is a multiple of
+# it and every plane is aligned to it, else one (``kVec`` there)
+XT_VEC = 2
 
 
 def cplane_mac(V: torch.Tensor, H: torch.Tensor, ratio: int) -> torch.Tensor:

@@ -13,9 +13,9 @@ Phases, each of which exits nonzero on failure:
    shapes its paths give it and at small and odd ones (for K1 and K7 also
    across their output tiles' edges; K3 and K4 at every size they serve,
    32 to 8192, and at row counts that leave a CTA partly empty; K2 at
-   every partition count of its unrolled kernel and at counts of its
-   general one, at every queue cursor; K9 also over a bfloat16 and a
-   float16 queue, each a kernel of its own in the JSON line, on both its
+   every partition count of its register kernel, on its vector and its
+   one-element path, and at counts of its general one, at every queue
+   cursor; K9 also over a bfloat16 and a float16 queue, each a kernel of its own in the JSON line, on both its
    vector and its one-bin path, and timed warm and with a cold L2 beside
    a launch that does next to nothing and ``torch.sum`` over the same
    bytes; K3, K4, K7
@@ -152,7 +152,7 @@ Phases, each of which exits nonzero on failure:
    2, F = 4097 (the time-sharded render's pending MAC), K3/K4 over the
    halo's 16 x 64 tail rows (n = 8192) and 17 x 64 head rows (n = 1024),
    and the config #5 render's K1 (1024 channels, R = 112), K2 (P = 14, its
-   general kernel), K3/K4 (14 x 1024 rows), K5 and K6.  Then (a) config #5
+   register kernel), K3/K4 (14 x 1024 rows), K5 and K6.  Then (a) config #5
    in one process at full width, 1024 channels x 65536-tap IRs (block
    512, ratio 8, Pt = 14, one render group of 57344 samples), held on
    channels 0, 511 and 1023 against float64 ``fftconvolve`` (>= 90 dB),
@@ -759,9 +759,10 @@ def main() -> None:
 
     # K2 xt-grouped tail MAC: (P, C, F), each at every queue cursor.  The
     # render's shape first (timed), then odd C F, every partition count of
-    # the unrolled kernel and counts of the general one, large shapes
-    # before small ones.  Each launch's output lands on memory that held
-    # NaN just before, so an element the kernel left out shows.
+    # the register kernel on its vector path (C F even) and its one-element
+    # path (C F odd) and counts of the general one, large shapes before
+    # small ones.  Each launch's output lands on memory that held NaN just
+    # before, so an element the kernel left out shows.
     def k2_cost(P, Cc, F):
         """Queue, xt and H in and the spectra out; P x P complex MACs
         and 2P - 1 window sums a bin."""
@@ -774,9 +775,9 @@ def main() -> None:
     k2_timed, bad = {}, []
     for P, Cc, F in ((6, C, SB + 1), (12, C, SB + 1), (6, 7, SB + 1),
                      (2, 8, SB + 1), (1, 5, SB + 1),
-                     *((P, 8, 257) for P in range(1, 9)),
-                     *((P, 5, 33) for P in range(1, 9)),
-                     (9, 8, 257), (20, 3, 65), (64, 2, 33), (1, 1, 33)):
+                     *((P, 8, 257) for P in range(1, 18)),
+                     *((P, 5, 33) for P in range(1, 18)),
+                     (20, 3, 65), (64, 2, 33), (1, 1, 33)):
         path = "unrolled" if P <= unrolled else "general"
         low = None
         for slot0 in range(P):
@@ -791,20 +792,20 @@ def main() -> None:
             low = s if low is None else min(low, s)
         line = (f"xt_grouped_mac P={P} C={Cc} F={F} ({path} kernel), slot0 = "
                 f"0 .. {P - 1}: >= {low:.1f} dB")
-        if Cc == C:   # the render's shape and the general kernel's, timed
-            k2_timed[path] = (
+        if Cc == C:   # the render's shape and P = 12, timed
+            k2_timed[P] = (
                 float((got - want).abs().max()),
                 median_ms(lambda: k2.xt_grouped_mac_cuda(*args, P // 2)),
                 median_ms(lambda: k2.xt_grouped_mac_plain(*args, P // 2)))
             b_ms = bound(*k2_cost(P, Cc, F))[0]
-            line += (f"; kernel {k2_timed[path][1]:.4f} ms, plain "
-                     f"{k2_timed[path][2]:.4f} ms, bound {b_ms:.4f} ms "
-                     f"({100 * b_ms / k2_timed[path][1]:.0f}% of it)  ({card})")
+            line += (f"; kernel {k2_timed[P][1]:.4f} ms, plain "
+                     f"{k2_timed[P][2]:.4f} ms, bound {b_ms:.4f} ms "
+                     f"({100 * b_ms / k2_timed[P][1]:.0f}% of it)  ({card})")
         print(line, flush=True)
     if bad:
         fail(f"below 120 dB: {bad}")
     record("xt_grouped_mac", "bbcat_dsp_torch/csrc/xt_grouped_mac.cu",
-           tpu_kernel("xt_grouped_mac_pallas"), *k2_timed["unrolled"],
+           tpu_kernel("xt_grouped_mac_pallas"), *k2_timed[6],
            *k2_cost(6, C, SB + 1))
 
     # K5 gather_supers: (C, nsup, B2); B2 = 33 takes the scalar path
@@ -1034,7 +1035,7 @@ def main() -> None:
     # render's pending MAC (K7 at P = Pt, R = 2, F = 4097) and its halo
     # transforms (K3 over the Pt + 2 tail super-blocks and the Ph + 1 head
     # blocks of 64 channels at config #5's Pt = 14), then the config #5
-    # render at 1024 channels: K1 (R = 112), K2 (P = 14, its general
+    # render at 1024 channels: K1 (R = 112), K2 (P = 14, its register
     # kernel), K3/K4 (beside their library calls), K5 and K6
     def hold_shape(label, kernel, plain_fn, args, cost, bar, library=None):
         got, want = kernel(*args), plain_fn(*args)
@@ -1103,7 +1104,7 @@ def main() -> None:
                       for k, v in k1_turns.items())
           + f"; bound {k1_b5:.4f} ms  ({card})", flush=True)
     del k1_args5
-    hold_shape(f"xt_grouped_mac P={PT5} C={C5} F={SB + 1} (general kernel), "
+    hold_shape(f"xt_grouped_mac P={PT5} C={C5} F={SB + 1} (register kernel), "
                f"slot0 = 5", k2.xt_grouped_mac_cuda, k2.xt_grouped_mac_plain,
                (randn(2, PT5, C5, SB + 1), randn(2, PT5, C5, SB + 1),
                 randn(2, PT5, C5, SB + 1), 5),

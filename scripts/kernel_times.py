@@ -23,19 +23,21 @@ K4 at their four path shapes (the render's 384 rows and the super-step's
 64 rows of n = 8192, the streamed block's 64 and the uniform render's 3072
 rows of n = 1024) beside ``torch.fft.rfft`` and ``torch.fft.irfft`` with
 the tail half copied, and of K5 beside ``permute().contiguous()``.  K2 is
-held against plain at the render's shape (P = 6, C = 64, F = 4097) at
-every queue cursor, at every partition count 1 .. 8 (the unrolled kernel)
-and above (the general one) and at odd ``C F``, large shapes before
-small ones, each
-launch into memory that was filled with NaN just before; it is timed at
-the render's shape beside its bound.  K2s is held against its plain
-version on the card (output, and the queue after its slot write) at every
-queue type, at config #5's tail (P = 14, C = 1024, F = 4097), at a
-vector and at a one-element shape, and timed at config #5's tail with
-the slot write, at each queue type, beside its bound and beside the
-composition the tail step ran before it (roll, two cats, the window sums,
-K7 at R = 1, a copy of the queue, the slot write).  It
-runs on any tree that has the wrappers, so an older checkout gives the
+held against plain at BASELINE config #5's tail (P = 14, C = 1024,
+F = 4097) and the render's shape (P = 6, C = 64) at every queue cursor, at
+every partition count 1 .. 16 (the register kernel, on its vector and its
+one-element path) and above (the general one) and at odd ``C F``, large
+shapes before small ones, each launch into memory that was filled with NaN
+just before; it is timed at config #5's tail and at C = 64 for P = 6, 12
+and 20 beside its bound, and ``ptxas``'s line is printed for the register
+kernel at P = 6, 14 and 16 and for the general one.  K2s is held against
+its plain version on the card (output, and the queue after its slot
+write) at every queue type, at config #5's tail (P = 14, C = 1024,
+F = 4097), at a vector and at a one-element shape, and timed at config
+#5's tail with the slot write, at each queue type, beside its bound and
+beside the composition the tail step ran before it (roll, two cats, the
+window sums, K7 at R = 1, a copy of the queue, the slot write). It runs
+on any tree that has the wrappers, so an older checkout gives the
 earlier kernels' times (K2s only where the tree has it).
 
 Each ``--define NAME=VALUE`` (comma-separated for several at once) builds
@@ -94,10 +96,14 @@ K34_SHAPES = (((6, C), 8192), ((C,), 8192), ((C,), 1024), ((48, C), 1024),
                                         256, 512) for r in (1, 5, 67)))
 # (P, C, F): config #5's tail, timed; a vector and a one-element shape
 K2S_SHAPES = ((14, 1024, 4097), (6, 64, 4097), (14, 3, 33))
-# (P, C, F), each at every queue cursor; the first is the render's, timed
-K2_SHAPES = ((6, C, 4097), (6, 7, 4097), (2, 8, 4097), (1, 5, 4097),
-             (12, 8, 4097), *((p, 8, 257) for p in range(1, 9)),
-             *((p, 5, 33) for p in range(1, 9)), (9, 8, 257), (12, 5, 33),
+# (P, C, F), each at every queue cursor: config #5's tail and, at C = 64,
+# the render's P, a register and a general P (timed); then every P of the
+# register kernel on its vector path (C F even) and on its one-element
+# path (C F odd), the first general P, larger ones
+K2_SHAPES = ((14, 1024, 4097), (6, C, 4097), (12, C, 4097), (20, C, 4097),
+             (6, 7, 4097), (2, 8, 4097), (1, 5, 4097), (12, 8, 4097),
+             *((p, 8, 257) for p in range(1, 18)),
+             *((p, 5, 33) for p in range(1, 18)), (12, 5, 33),
              (20, 3, 65), (64, 2, 33), (1, 1, 33))
 
 
@@ -116,8 +122,10 @@ def main() -> int:
         ("K1", ("fused_head", "windows_kernel", "mac_inverse",
                 "resident_kernel")),
         ("K7", ("head_mac",)), ("K34", ("rfft_half", "irfft_tail")),
-        ("K2", ("xt_mac_unrolled_kernelILi6", "xt_mac_unrolled_kernelILi8",
-                "xt_mac_general")), ("K2s", ("xt_step_mac",)))
+        ("K2", ("xt_mac_unrolled_kernelILi6E",
+                "xt_mac_unrolled_kernelILi14E",
+                "xt_mac_unrolled_kernelILi16E", "xt_mac_general")),
+        ("K2s", ("xt_step_mac",)))
         if key in only for name in names]
 
     import torch
@@ -278,10 +286,11 @@ def main() -> int:
                 torch.cuda.synchronize()
                 low.append(snr(k2.xt_grouped_mac_plain(*a, slot0), got))
             ok &= min(low) >= 110.0   # NaN compares false
-            path = "unrolled" if Pp <= k2.XT_UNROLLED_PARTS else "general"
+            path = ("unrolled" if Pp <= _build.library()
+                    .bbcat_xt_unrolled_parts() else "general")
             line = (f"{tag} K2 P={Pp} C={Cc} F={F} ({path}), slot0 = 0 .. "
                     f"{Pp - 1}: >= {min(low):.1f} dB")
-            if Cc == C:
+            if Cc in (C, 1024):
                 nbytes = 4 * 8.0 * Pp * Cc * F
                 line += (f"  {median_ms(lambda: k2.xt_grouped_mac_cuda(*a, 0)):.4f}"
                          f" ms at slot0 = 0, "

@@ -445,25 +445,36 @@ def test_xt_grouped_mac_plain_matches_pallas_interpret(rng):
 
 # ---- the schedule of the CUDA K2, modelled in numpy ----------------------------
 
-def _xt_grouped_mac_model(queue, xt, H, slot0):
+def _xt_grouped_mac_model(queue, xt, H, slot0, vec_ok=True):
     """Both kernels of ``csrc/xt_grouped_mac.cu``, thread by thread over
-    flat ``[2, P, N]`` planes, ``N = C F``: thread ``at`` of whole CTAs of
-    128 owns element ``at`` of every partition (those past ``N`` return),
-    reads the queue's slot ``(slot0 + i) % P`` as the ``i``-th oldest half
-    spectrum, takes its sign from ``at % F``, forms the windows in place
-    (ascending, so ``t[k + 1]`` is still whole) and sums ``w[P - 1 + j - p]
-    H[p]``.  The unrolled kernel (``P <= kUnrolledParts``) and the general
-    one differ in where the windows live, not in this arithmetic; the
-    dispatch between them is by ``P`` alone.  Returns ``(out, path)``."""
+    flat ``[2, P, N]`` planes, ``N = C F``.  The dispatch is by ``P``
+    alone: the register kernel up to ``XT_UNROLLED_PARTS``, the general
+    one above.  A register thread owns ``XT_VEC`` consecutive elements
+    where ``N`` is a multiple of it and every plane is aligned to it
+    (``vec_ok``), else one; a general thread owns one.  Threads of whole
+    CTAs of 128 take ``at = thread * V`` (those past ``N`` return); each
+    element reads the queue's slot ``(slot0 + i) % P`` as the ``i``-th
+    oldest half spectrum, takes its sign from its own ``at % F``, forms
+    the windows in place (ascending, so ``t[k + 1]`` is still whole) and
+    sums ``w[P - 1 + j - p] H[p]``, p ascending.  The two kernels differ
+    in where the windows live, not in this arithmetic.  Returns ``(out,
+    path)``, path ``"unrolled"`` with ``V`` or ``"general"``."""
     _, P, C, F = H.shape
     N = C * F
-    path = "unrolled" if P <= k2.XT_UNROLLED_PARTS else "general"
+    if P > k2.XT_UNROLLED_PARTS:
+        path, V = "general", 1
+    elif N % k2.XT_VEC == 0 and vec_ok:
+        path, V = f"unrolled V={k2.XT_VEC}", k2.XT_VEC
+    else:
+        path, V = "unrolled V=1", 1
     q, x, h = (a.reshape(2, P, N) for a in (queue, xt, H))
     out = np.full((2, P, N), np.nan, np.float32)   # poisoned: all written?
-    at = np.arange(-(-N // 128) * 128, dtype=np.int64)
-    at = at[at < N]
+    first = np.arange(-(-N // V // 128) * 128, dtype=np.int64) * V
+    first = first[first < N]                       # the live threads
+    at = (first[:, None] + np.arange(V)).ravel()   # their elements
+    assert np.array_equal(np.sort(at), np.arange(N))   # each exactly once
     s = np.where((at % F) & 1, -1.0, 1.0).astype(np.float32)
-    t = np.empty((2, 2 * P, N), np.float32)
+    t = np.empty((2, 2 * P, at.size), np.float32)
     for i in range(P):
         slot = slot0 + i
         if slot >= P:
@@ -473,8 +484,8 @@ def _xt_grouped_mac_model(queue, xt, H, slot0):
     for k in range(2 * P - 1):
         t[:, k] += s * t[:, k + 1]
     for j in range(P):
-        ar = np.zeros(N, np.float32)
-        ai = np.zeros(N, np.float32)
+        ar = np.zeros(at.size, np.float32)
+        ai = np.zeros(at.size, np.float32)
         for p in range(P):
             k = P - 1 + j - p
             ar += t[0, k] * h[0, p, at] - t[1, k] * h[1, p, at]
@@ -483,24 +494,33 @@ def _xt_grouped_mac_model(queue, xt, H, slot0):
     return out.reshape(H.shape), path
 
 
-@pytest.mark.parametrize("P,C,F,path", [
-    (6, 4, 33, "unrolled"),     # the headline's Pt
-    (6, 5, 33, "unrolled"),     # odd C F
-    (1, 2, 9, "unrolled"),      # one partition: a single window
-    (2, 6, 17, "unrolled"),
-    (3, 2, 129, "unrolled"),    # more than one CTA, the last partly empty
-    (4, 3, 8, "unrolled"),      # even F: rows start on either parity
-    (5, 2, 65, "unrolled"),
-    (7, 2, 33, "unrolled"),
-    (8, 2, 17, "unrolled"),     # the last unrolled count
-    (9, 2, 17, "general"),      # the first general one
-    (12, 3, 9, "general"),
+_V = f"unrolled V={k2.XT_VEC}"
+
+
+@pytest.mark.parametrize("P,C,F,vec_ok,path", [
+    (6, 4, 33, True, _V),             # the headline's Pt
+    (6, 5, 33, True, "unrolled V=1"),  # C F odd: one element a thread
+    (1, 2, 9, True, _V),              # one partition: a single window
+    (2, 6, 17, True, _V),
+    (3, 2, 129, True, _V),            # more than one CTA, the last partly empty
+    (4, 3, 8, True, _V),              # even F: rows start on either parity
+    (5, 2, 65, True, _V),
+    (7, 2, 33, True, _V),
+    (8, 2, 17, True, _V),
+    (9, 2, 17, True, _V),             # general until the template reached 16
+    (12, 3, 9, True, "unrolled V=1"),
+    (14, 4, 129, True, _V),           # config #5's tail partitions
+    (14, 3, 33, True, "unrolled V=1"),
+    (14, 4, 33, False, "unrolled V=1"),  # a plane off the vector boundary
+    (16, 2, 33, True, _V),            # the register kernel's last P
+    (17, 2, 17, True, "general"),     # the first general one
+    (17, 3, 9, True, "general"),
 ])
 def test_xt_grouped_mac_schedule_matches_plain_and_contract(rng, P, C, F,
-                                                            path):
+                                                            vec_ok, path):
     for slot0 in range(P):
         q, xt, H = _arrays(rng, *[(2, P, C, F)] * 3)
-        got, took = _xt_grouped_mac_model(q, xt, H, slot0)
+        got, took = _xt_grouped_mac_model(q, xt, H, slot0, vec_ok)
         assert took == path
         assert np.all(np.isfinite(got))            # every element written
         plain = k2.xt_grouped_mac_plain(*map(torch.from_numpy, (q, xt, H)),
